@@ -1,0 +1,298 @@
+"""Inference and evaluation pipeline, spline-free configuration.
+
+Counterpart of parsenet_tpu/eval/pipeline.py:
+
+* `predict_segmentation`: network forward, mean-shift clustering (quantile
+  0.015, 50 iterations, K1), per-point types, SIOU over LAP-matched
+  segments (K2). Batched: the network runs on [B, N], clustering per shape.
+* `reconstruct_shape` with spline_fit=None: hard one-hot membership,
+  per-segment type by vote, all four geometric fits per segment, surface
+  grids, the closed-form residual and the reference-protocol coverage (K3).
+  Spline segments take the geometric fallback; the spline decoders belong
+  to the next slice of the port.
+* `run_batch`: one batch through both, as bench.py's shape_pipeline does.
+
+Random draws (the bandwidth subset, the coverage uniforms) are arguments or
+come from an explicit torch.Generator on the run's device.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.guards import EPS, entry_device
+from ..ops.chamfer import min_sqdist
+from ..ops.mean_shift import guard_mean_shift
+from ..ops.primitive_dist import (GEOM_CONE, GEOM_CYLINDER, GEOM_SPHERE,
+                                  geom_type_from_label, residual_select)
+from ..ops.primitive_fits import AllPrimParams, fit_all_primitives_shared_points
+from ..ops.sampling import (sample_cone, sample_cylinder, sample_plane,
+                            sample_sphere)
+from ..ops.segmentation import (K_MAX, primitive_type_per_segment,
+                                remap_primitive_labels,
+                                siou_matched_segments, to_one_hot)
+
+SURF_GRID = 64       # per-primitive sample grid (64^2 = 4096 samples)
+COV_SAMPLES = 10000  # coverage sample budget (reference: test.py:153)
+COV_TRIM_EPS = 0.1   # mesh bit-mapping epsilon (reference: test.py:137)
+COV_TRIM_POINTS = 2500  # input subsample the trim test runs against
+
+STAGES = ("dgcnn", "mean_shift", "siou", "fits_sampling", "residual",
+          "coverage")
+
+
+class StageTimer:
+    """Device time per pipeline stage from CUDA events. Each `with
+    timer(stage)` records an event pair on the current stream; `ms()`
+    synchronises and sums them. Disabled (a no-op) off the card."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+        self.events: dict[str, list] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        if not self.enabled:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self.events.setdefault(stage, []).append((start, end))
+
+    def ms(self) -> dict[str, float]:
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.events.items()}
+
+
+_NO_TIMER = StageTimer(False)
+
+
+def _as_tensor(a, device, dtype=None) -> torch.Tensor:
+    if not torch.is_tensor(a):
+        a = torch.from_numpy(np.array(a))
+    return a.to(device=device, dtype=dtype)
+
+
+class SegmentationPrediction(NamedTuple):
+    labels: torch.Tensor      # [B, N] cluster id per point
+    pred_prim: torch.Tensor   # [B, N] predicted primitive type per point
+    embedding: torch.Tensor   # [B, N, D]
+    seg_iou: torch.Tensor     # [B]
+    prim_iou: torch.Tensor    # [B]
+    num_clusters: list        # [B] ints
+
+
+@torch.no_grad()
+def predict_segmentation(model, points, normals, gt_labels, gt_prim,
+                         quantile: float = 0.015, iterations: int = 50,
+                         ms_num_samples: int = 5000, ms_bf16: bool = False,
+                         subsets: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         device=None,
+                         timer: StageTimer = _NO_TIMER
+                         ) -> SegmentationPrediction:
+    """Segment a batch of shapes. points/normals [B, N, 3], gt_labels /
+    gt_prim [B, N]; model maps [B, N, 6] to (embedding, type log-probs).
+
+    subsets [B, S]: the bandwidth-statistic rows per shape, else drawn from
+    `generator` (see ops.mean_shift._subset_sqdist). ms_bf16: bf16 operands
+    in the mean-shift products, the bench's setting (f32 by default).
+    """
+    dev = entry_device(device)
+    pts = _as_tensor(points, dev, torch.float32)
+    nrm = _as_tensor(normals, dev, torch.float32)
+    gt_labels = _as_tensor(gt_labels, dev, torch.int64)
+    gt_prim = _as_tensor(gt_prim, dev, torch.int64)
+    with timer("dgcnn"):
+        emb, prim_logp = model(torch.cat([pts, nrm], dim=-1))
+        pred_prim = torch.argmax(prim_logp, dim=-1)
+        embn = emb / (torch.linalg.norm(emb, dim=-1, keepdim=True) + 1e-12)
+    labels, seg_ious, prim_ious, ks = [], [], [], []
+    for b in range(pts.shape[0]):
+        with timer("mean_shift"):
+            ms = guard_mean_shift(
+                embn[b], quantile, num_samples=ms_num_samples,
+                iterations=iterations, bf16_dots=ms_bf16,
+                subset=None if subsets is None else subsets[b],
+                generator=generator)
+        with timer("siou"):
+            seg_iou, prim_iou = siou_matched_segments(
+                gt_labels[b], ms.labels, pred_prim[b], gt_prim[b],
+                to_one_hot(ms.labels))
+        labels.append(ms.labels)
+        seg_ious.append(seg_iou)
+        prim_ious.append(prim_iou)
+        ks.append(ms.num_clusters)
+    return SegmentationPrediction(torch.stack(labels), pred_prim, emb,
+                                  torch.stack(seg_ious),
+                                  torch.stack(prim_ious), ks)
+
+
+class Reconstruction(NamedTuple):
+    surface_points: torch.Tensor  # [K, S, 3] sampled predicted surfaces
+    surface_mask: torch.Tensor    # [K] validity
+    seg_of_slot: torch.Tensor     # [K] segment id of each surface
+    residual: torch.Tensor        # mean sqrt distance of points to own surface
+    p_cov: torch.Tensor           # two-sided sqrt chamfer (pred <-> input)
+    sk_1: torch.Tensor            # fraction of input within 0.01 of prediction
+    sk_2: torch.Tensor            # ... within 0.02
+    area_weights: torch.Tensor    # [K, S] local area element per sample
+
+
+def _area_weights(surf: torch.Tensor) -> torch.Tensor:
+    """|du x dv| per sample of row-major g x g grids [K, g^2, 3] -> [K, g^2]
+    (np.gradient's central / one-sided differences)."""
+    k, g2, _ = surf.shape
+    g = int(round(g2 ** 0.5))
+    s = surf.reshape(k, g, g, 3)
+    tu = torch.gradient(s, dim=1)[0]
+    tv = torch.gradient(s, dim=2)[0]
+    return torch.linalg.norm(torch.linalg.cross(tu, tv), dim=-1).reshape(k, g2)
+
+
+def _fit_and_sample(points, normals, pred_labels, pred_prim):
+    """Per-segment fits and surface grids of one shape.
+    Returns (params, geom_type [K], valid [K], surf [K, G^2, 3], area [K, G^2])."""
+    oh = to_one_hot(pred_labels)                          # [N, K]
+    valid = torch.sum(oh, dim=0) >= 20                    # reference drop rule
+    prim_oh = to_one_hot(remap_primitive_labels(pred_prim), 10)
+    geom_type = geom_type_from_label(primitive_type_per_segment(prim_oh, oh))
+    seg_mask = oh.T                                       # [K, N]
+    params = fit_all_primitives_shared_points(points, normals, seg_mask + EPS)
+    t = geom_type[:, None, None]
+    surf = sample_plane(params.plane.normal, params.plane.offset, points,
+                        seg_mask, SURF_GRID)
+    surf = torch.where(t == GEOM_SPHERE, sample_sphere(
+        params.sphere.center, params.sphere.radius, points, seg_mask,
+        SURF_GRID), surf)
+    surf = torch.where(t == GEOM_CYLINDER, sample_cylinder(
+        params.cylinder.axis, params.cylinder.center, params.cylinder.radius,
+        points, seg_mask, SURF_GRID), surf)
+    surf = torch.where(t == GEOM_CONE, sample_cone(
+        params.cone.apex, params.cone.axis, params.cone.theta, points,
+        seg_mask, SURF_GRID), surf)
+    return params, geom_type, valid, surf, _area_weights(surf)
+
+
+def _residual(points, pred_labels, params: AllPrimParams, geom_type, valid):
+    """Mean sqrt distance of each point to its own segment's primitive over
+    points of valid segments (reference ResidualLoss, primitives.py:36-44).
+    Labels past K_MAX - 1 read the last segment, as JAX's clamped gather."""
+    n = points.shape[0]
+    lab = torch.clamp(pred_labels, max=K_MAX - 1)
+    d_own = residual_select(points, params, geom_type)[
+        lab, torch.arange(n, device=points.device)]
+    pt_valid = valid[lab].to(torch.float32)
+    return (torch.sum(torch.sqrt(torch.clamp(d_own, min=1e-12)) * pt_valid)
+            / (torch.sum(pt_valid) + EPS))
+
+
+@torch.no_grad()
+def protocol_coverage(points: torch.Tensor, flat_surf: torch.Tensor,
+                      flat_w: torch.Tensor, uniforms: torch.Tensor):
+    """Reference-protocol coverage (p_cov, sk_1, sk_2) of one shape.
+
+    points [N, 3]; flat_surf [M, 3] surface samples with area-times-validity
+    weights flat_w [M]; uniforms [COV_SAMPLES] in [0, 1). Surface farther
+    than COV_TRIM_EPS from the input (tested against a 2,500-point input
+    subsample) is trimmed, COV_SAMPLES samples are drawn area-weighted, and
+    the one-sided sqrt chamfers are measured both ways.
+    """
+    n = points.shape[0]
+    sub = points[::max(1, n // COV_TRIM_POINTS)].contiguous()
+    trim_d = min_sqdist(flat_surf, sub)
+    flat_w = flat_w * (trim_d <= COV_TRIM_EPS ** 2)
+    cdf = torch.cumsum(flat_w, dim=0)
+    u = uniforms.to(torch.float32) * cdf[-1]
+    pick = torch.clamp(torch.searchsorted(cdf, u), 0, flat_surf.shape[0] - 1)
+    surf_s = flat_surf[pick]
+    d_in = torch.sqrt(torch.clamp(min_sqdist(points, surf_s), min=1e-12))
+    d_out = torch.sqrt(torch.clamp(min_sqdist(surf_s, points), min=1e-12))
+    cov = 0.5 * (torch.mean(d_in) + torch.mean(d_out))
+    sk_1 = torch.mean((d_in < 0.01).to(torch.float32))
+    sk_2 = torch.mean((d_in < 0.02).to(torch.float32))
+    return cov, sk_1, sk_2
+
+
+@torch.no_grad()
+def reconstruct_shape(points, normals, pred_labels, pred_prim,
+                      uniforms: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      spline_fit=None, device=None,
+                      timer: StageTimer = _NO_TIMER) -> Reconstruction:
+    """Eval-mode fitting of one clustered shape, spline-free.
+
+    points/normals [N, 3]; pred_labels [N] cluster ids; pred_prim [N]
+    per-point types. uniforms [COV_SAMPLES] for the coverage draw, else
+    drawn from `generator`.
+    """
+    if spline_fit is not None:
+        raise NotImplementedError(
+            "reconstruct_shape: the spline decoders are slice 2 of the port; "
+            "pass spline_fit=None")
+    dev = entry_device(device)
+    pts = _as_tensor(points, dev, torch.float32)
+    nrm = _as_tensor(normals, dev, torch.float32)
+    pred_labels = _as_tensor(pred_labels, dev, torch.int64)
+    pred_prim = _as_tensor(pred_prim, dev, torch.int64)
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("reconstruct_shape: pass uniforms or a generator")
+        uniforms = torch.rand(COV_SAMPLES, generator=generator, device=dev)
+    with timer("fits_sampling"):
+        params, geom_type, valid, surf, area_w = _fit_and_sample(
+            pts, nrm, pred_labels, pred_prim)
+    with timer("residual"):
+        residual = _residual(pts, pred_labels, params, geom_type, valid)
+    with timer("coverage"):
+        return _finish_coverage(pts, surf, valid, area_w, residual,
+                                _as_tensor(uniforms, dev))
+
+
+def _finish_coverage(points, surf, valid, area_w, residual,
+                     uniforms) -> Reconstruction:
+    """Coverage over every valid segment's area-weighted surface samples
+    (reference segment_utils.py:83-123, test.py:153), then the result."""
+    flat_w = (valid[:, None] * area_w).reshape(-1)
+    cov, sk_1, sk_2 = protocol_coverage(points, surf.reshape(-1, 3), flat_w,
+                                        uniforms)
+    return Reconstruction(surf, valid,
+                          torch.arange(K_MAX, device=points.device), residual,
+                          cov, sk_1, sk_2, area_w)
+
+
+@torch.no_grad()
+def run_batch(model, points, normals, labels, prim,
+              generator: torch.Generator, ms_bf16: bool = True, device=None,
+              timer: StageTimer = _NO_TIMER) -> dict:
+    """One batch of shapes through the spline-free main path, as bench.py's
+    shape_pipeline: predict_segmentation then reconstruct_shape per shape.
+    points/normals [B, N, 3], labels/prim [B, N]; `generator` lives on the
+    run's device. Returns per-shape metric lists."""
+    dev = entry_device(device)
+    pts = _as_tensor(points, dev, torch.float32)
+    nrm = _as_tensor(normals, dev, torch.float32)
+    pred = predict_segmentation(
+        model, pts, nrm, labels, prim, ms_bf16=ms_bf16,
+        ms_num_samples=min(5000, pts.shape[1]), generator=generator,
+        device=dev, timer=timer)
+    out = {k: [] for k in ("residual", "p_cov", "sk_1", "sk_2")}
+    for b in range(pts.shape[0]):
+        rec = reconstruct_shape(pts[b], nrm[b], pred.labels[b],
+                                pred.pred_prim[b], generator=generator,
+                                device=dev, timer=timer)
+        for k in out:
+            out[k].append(float(getattr(rec, k)))
+    out["seg_iou"] = pred.seg_iou.tolist()
+    out["prim_iou"] = pred.prim_iou.tolist()
+    out["num_clusters"] = list(pred.num_clusters)
+    return out
