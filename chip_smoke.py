@@ -14,16 +14,41 @@ Phases, one line each (plus detail lines):
         (cluster numbering aside); bf16 co-membership >= 0.99;
      K2 auction on SIOU-structured and random 50 x 50 costs: identical
         assignments, every completed one a permutation;
-     K3 min-sqdist at 10k x 10k and 204,800 x 2,500 (masked):
+     K3 min-sqdist at 10k x 10k, 204,800 x 2,500 (masked) and, batched,
+        36 x (700 vs 1,600), the SplineNet training shape:
         |d| <= 1e-6 + 1e-5 |ref|, indices equal wherever the minimum is
         unique by more than 1e-5;
+     K4 min-sqdist backward at the training shape, on K3's argmins, for a
+        random incoming gradient: dq and dx within 1e-5 + 1e-5 |ref| of
+        gather + index_add_ (dx sums with float atomics, in no fixed
+        order); and MinSqdist's gradients on the card are K4's, not zero;
+     K5 one mean-shift step at 10,000 x 128, queries a perturbed copy of
+        the stream-a embedding, keys the embedding: max |d| <= 1e-5;
   4. slice: bench.py's stream "a" (seed 7, 2 warm-up + 8 timed batches of 4,
      10k points, bf16 mean-shift, spline_fit=None, shipped params) through
      parsenet_tpu_torch.eval.pipeline.run_batch; quality against the
      configs/quality_floors.json "bench" floors, shapes/hour, per-stage ms
      from CUDA events, and launches > 0 for K1, K2 and K3;
-  5. kernel times at main-path shapes beside the plain version, the bound
-     and, for K3, torch.cdist as a library yardstick.
+  5. train: SplineNet at full width (grid 20, k 10, 36 patches of 700
+     points, 40 x 40 surface samples, anisotropic, loss_weight 0.9, Adam
+     at lr 1e-3):
+     (a) parity: two train_steps from params/{open,closed}_splinenet.npz
+         on a fixed synthetic batch; each step's loss, cd, l_reg and lap
+         within 1e-3 (step 1) and 5e-3 (step 2, after the card's backward
+         and Adam update) relative of the JAX package's
+         (SPLINE_REFERENCE); the card's step-1 gradient of every tensor
+         within 0.1 |ref| + 1e-8 of the plain path's on the CPU;
+     (b) open, through train_spline.run_training from a seeded random
+         init: 3 warm-up + 20 timed steps (448 or 700 points per step),
+         ms/step, patches/s, per-stage ms from CUDA events; every loss
+         finite, the last 5 below the first 5, K3 and K4 launched;
+     (c) closed: 1 warm-up + 5 timed steps, the same checks but the
+         falling loss;
+     (d) each run's validation: eval_step's two-sided sqrt chamfer on 2
+         batches;
+  6. kernel times at main-path shapes beside the plain version, the bound
+     and the library yardstick where one PyTorch call computes the same
+     (torch.cdist for K3, index_add_ for K4's scatter).
 The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Any failed check exits non-zero without the
 ok line; without a CUDA device it exits 1 at once.
@@ -48,6 +73,40 @@ HBM_BYTES_S = 3.35e12
 # r5_infer_ablate.jsonl, arm "splines"), printed beside the port's
 REFERENCE = {"seg_iou": 0.8907, "residual": 0.00907, "p_cov": 0.01523,
              "sk_2": 0.8899}
+
+# SplineNet training: full width, and the batch of each parity step:
+# make_spline_batch(RandomState(seed), 36, 700, 20, closed), mean-centred
+# and scaled per axis, without the PCA alignment (its rotation follows the
+# sign of a LAPACK eigenvector, which differs between numpy builds) and
+# without augmentation
+GRID, SPLINE_BATCH, SPLINE_POINTS = 20, 36, 700
+SPLINE_SEEDS = {"open": 0, "closed": 1}
+# two train_steps of the JAX package (lr 1e-3, loss_weight 0.9) from
+# params/{open,closed}_splinenet.npz on those batches, on the CPU:
+# the output of `python scripts/spline_train_reference.py`
+SPLINE_REFERENCE = {
+    "open": [{"loss": 0.046678557991981506, "cd": 0.017725083976984024,
+              "l_reg": 0.04824110120534897, "lap": 0.014890600927174091},
+             {"loss": 0.07093440741300583, "cd": 0.01134300697594881,
+              "l_reg": 0.06256694346666336, "lap": 0.13489852845668793}],
+    "closed": [{"loss": 0.07450274378061295, "cd": 0.017208794131875038,
+                "l_reg": 0.08086873590946198, "lap": 0.0},
+               {"loss": 0.06250898540019989, "cd": 0.02108459174633026,
+                "l_reg": 0.06711169332265854, "lap": 0.0}],
+}
+# Relative tolerance of each step's metrics. The second step's metrics
+# follow the first step's gradients through Adam, whose first update moves
+# every weight by lr times the sign of its gradient, whatever the size; so
+# gradients that are round-off (the biases ahead of a BatchNorm) or that
+# flip with a near-tied ReLU or kNN choice move the second step's metrics by
+# up to 1.3e-3 between the port on the CPU and the JAX package.
+PARITY_RTOL = (1e-3, 5e-3)
+# The card's step-1 gradient of each tensor against the port's plain path on
+# the CPU: |d| <= GRAD_RTOL |ref| + GRAD_ATOL. The port on the CPU and the
+# JAX package differ by up to 2.5e-2 in one tensor (open conv6 kernel), for
+# the same near-tied choices; GRAD_ATOL covers the round-off gradients
+# (norms 1e-11 to 1e-9) of the biases ahead of a BatchNorm.
+GRAD_RTOL, GRAD_ATOL = 0.1, 1e-8
 
 FAILURES = []
 
@@ -151,15 +210,24 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from parsenet_tpu_torch.core.config import Config
     from parsenet_tpu_torch.core.guards import entry_device
+    from parsenet_tpu_torch.core.profiling import StageTimer
     from parsenet_tpu_torch.data.abc import normalize_points
-    from parsenet_tpu_torch.data.synthetic import make_shape_batch
+    from parsenet_tpu_torch.data.splines import canon_batch, synthetic_batches
+    from parsenet_tpu_torch.data.synthetic import (make_shape_batch,
+                                                   make_spline_batch)
     from parsenet_tpu_torch.eval import pipeline as tp
     from parsenet_tpu_torch.models.dgcnn import load_primitives_embedding
+    from parsenet_tpu_torch.models.splinenet import load_splinenet
     from parsenet_tpu_torch.ops import hungarian as hg
     from parsenet_tpu_torch.ops import kernels
     from parsenet_tpu_torch.ops import mean_shift as ms
+    from parsenet_tpu_torch.ops.bspline import (sample_surface,
+                                                uniform_knot_bspline)
     from parsenet_tpu_torch.ops.segmentation import relaxed_iou, to_one_hot
+    from parsenet_tpu_torch.train import train_spline as tsp
+    from parsenet_tpu_torch.train.state import make_optimizer
 
     t_start = time.perf_counter()
     dev = entry_device("cuda")
@@ -205,6 +273,28 @@ def main():
     bw = ms._initial_bandwidth(ms._subset_sqdist(embn, 5000, generator=gen),
                                0.015)
     report = {"device": name, "nvidia_smi": smi, "build_s": build_s}
+
+    # ---- shared training inputs: the parity batches, and surfaces at the
+    # training shape (each open batch grid sampled 40 x 40, plus noise)
+    nu, nv = (torch.from_numpy(a).to(dev)
+              for a in uniform_knot_bspline(GRID, GRID, 3, 3, 40))
+    spline_batches = {}
+    for sname, seed in SPLINE_SEEDS.items():
+        raw = make_spline_batch(np.random.RandomState(seed), SPLINE_BATCH,
+                                SPLINE_POINTS, GRID, sname == "closed")
+        spline_batches[sname] = tuple(torch.from_numpy(a).to(dev) for a in
+                                      canon_batch(*raw, False, True)[:3])
+    tq = spline_batches["open"][0]                          # [36, 700, 3]
+    tx = sample_surface(nu, nv, spline_batches["open"][1])  # [36, 1600, 3]
+    gen_k = torch.Generator(device=dev)   # the slice keeps `gen` to itself
+    gen_k.manual_seed(2)
+    tx = (tx + 0.01 * torch.randn(tx.shape, device=dev,
+                                  generator=gen_k)).contiguous()
+    g_k4 = torch.rand(tq.shape[:2], device=dev, generator=gen_k)
+    # K5's queries: a perturbed copy of the stream-a embedding
+    m5 = embn + 0.01 * torch.randn(embn.shape, device=dev, generator=gen_k)
+    m5 = (m5 / torch.linalg.norm(m5, dim=1, keepdim=True)).contiguous()
+    inv2b2 = 1.0 / (2.0 * bw * bw)
 
     # ---- 3. kernels against their plain versions
     def kernel_checks():
@@ -276,6 +366,46 @@ def main():
             check(same_idx, f"K3 {tag}: indices equal on "
                   f"{int(uniq.sum())}/{uniq.numel()} unique minima")
 
+        # K3 batched at the SplineNet training shape
+        tag = f"batched {SPLINE_BATCH} x ({SPLINE_POINTS} vs {tx.shape[1]})"
+        d_k, i_k = kernels.min_sqdist_with_idx(tq, tx)
+        d_p, i_p = kernels.min_sqdist_with_idx_plain(tq, tx)
+        err = (d_k - d_p).abs()
+        uniq = torch.stack([unique_min_mask(tq[b], tx[b])
+                            for b in range(SPLINE_BATCH)])
+        report["K3_train_max_abs_err"] = float(err.max())
+        check(bool((err <= 1e-6 + 1e-5 * d_p.abs()).all()),
+              f"K3 {tag}: max |d| {float(err.max()):.3e} within "
+              "1e-6 + 1e-5 |ref|")
+        check(bool((i_k == i_p)[uniq].all()), f"K3 {tag}: indices equal on "
+              f"{int(uniq.sum())}/{uniq.numel()} unique minima")
+
+        # K4 on K3's argmins against gather + index_add_
+        dq_k, dx_k = kernels.min_sqdist_bwd(tq, tx, i_k, g_k4)
+        dq_p, dx_p = kernels.min_sqdist_bwd_plain(tq, tx, i_k, g_k4)
+        err_q, err_x = (dq_k - dq_p).abs(), (dx_k - dx_p).abs()
+        report["K4_max_abs_err"] = float(max(err_q.max(), err_x.max()))
+        check(bool((err_q <= 1e-5 + 1e-5 * dq_p.abs())[uniq].all()),
+              f"K4 dq: max |d| {float(err_q.max()):.3e} within 1e-5 + "
+              f"1e-5 |ref| on {int(uniq.sum())} unique minima")
+        check(bool((err_x <= 1e-5 + 1e-5 * dx_p.abs()).all()),
+              f"K4 dx: max |d| {float(err_x.max()):.3e} within 1e-5 + "
+              "1e-5 |ref| (float atomics)")
+        qg, xg = tq.clone().requires_grad_(), tx.clone().requires_grad_()
+        (kernels.MinSqdist.apply(qg, xg) * g_k4).sum().backward()
+        check(bool(torch.equal(qg.grad, dq_k)) and float(qg.grad.abs().max())
+              > 0 and bool(torch.allclose(xg.grad, dx_k, rtol=1e-5,
+                                           atol=1e-5)),
+              "MinSqdist gradients on the card are K4's and nonzero")
+
+        # K5: one step of perturbed queries against the embedding
+        err = float((kernels.mean_shift_step(m5, embn, inv2b2)
+                     - kernels.mean_shift_step_plain(m5, embn, inv2b2))
+                    .abs().max())
+        report["K5_max_abs_err"] = err
+        check(err <= 1e-5, f"K5 10,000 x 128 step, m != x: max |d| "
+              f"{err:.3e} <= 1e-5")
+
     phase(kernel_checks)
 
     # ---- 4. the slice
@@ -326,7 +456,7 @@ def main():
               f"residual {mean['residual']:.5f} <= {floors['residual_max']}")
         check(mean["sk_2"] >= floors["sk_2_min"],
               f"sk_2 {mean['sk_2']:.4f} >= {floors['sk_2_min']}")
-        for kname in kernels.SOURCES:
+        for kname in ("K1", "K2", "K3"):
             check(launches[kname] > 0,
                   f"{kname} launched on the slice ({launches[kname]})")
         check(all(np.isfinite(v) for v in mean.values()),
@@ -334,7 +464,112 @@ def main():
 
     phase(slice_run)
 
-    # ---- 5. kernel times at main-path shapes
+    # ---- 5. SplineNet training
+    def train_run():
+        out = report["train"] = {"launches": {k: 0 for k in kernels.LAUNCHES}}
+        # (a) parity with the JAX package from the shipped weights, over two
+        # steps; between them, the card's gradients against the plain
+        # path's on the CPU from the same weights and batch
+        cpu = torch.device("cpu")
+        for sname, ref in SPLINE_REFERENCE.items():
+            closed = sname == "closed"
+            models, steps = {}, {}
+            for where in (dev, cpu):
+                models[where] = load_splinenet(
+                    os.path.join(REPO, "params", f"{sname}_splinenet.npz"),
+                    int(closed), GRID, device=where)
+                steps[where] = tsp.make_train_step(
+                    models[where], make_optimizer(models[where].parameters()),
+                    nu.to(where), nv.to(where), GRID, closed, True)[0]
+            batch = spline_batches[sname]
+            got = [steps[dev](*batch, 1e-3, 0.9)]
+            steps[cpu](*(t.cpu() for t in batch), 1e-3, 0.9)
+            grad_err = {}
+            for (pname, p), q in zip(models[dev].named_parameters(),
+                                     models[cpu].parameters()):
+                diff = float(torch.linalg.norm(p.grad.cpu() - q.grad))
+                grad_err[pname] = (diff, float(torch.linalg.norm(q.grad)))
+            got.append(steps[dev](*batch, 1e-3, 0.9))
+            got = [{k: float(v) for k, v in g.items()} for g in got]
+            out[f"parity_{sname}"] = {"steps": got, "grad_err": grad_err}
+            for i, (g, r) in enumerate(zip(got, ref)):
+                print(f"[5 train] (a) {sname} step {i + 1} from the shipped "
+                      "weights: " + ", ".join(f"{k} {g[k]:.9g} (JAX {v:.9g})"
+                                              for k, v in r.items()),
+                      flush=True)
+                tol = PARITY_RTOL[i]
+                for k, v in r.items():
+                    rel = abs(g[k] - v) / abs(v) if v else abs(g[k])
+                    check(rel <= tol, f"{sname} step {i + 1} {k} within "
+                          f"{tol:g} relative of JAX ({rel:.2e})")
+            worst = max(grad_err, key=lambda n: grad_err[n][0]
+                        / (grad_err[n][1] + GRAD_ATOL))
+            rel = sorted(((d / max(r, 1e-30), n, r)
+                          for n, (d, r) in grad_err.items()), reverse=True)
+            print(f"  {sname} step 1 gradients, card vs CPU plain path, "
+                  "largest |d| / |ref|: " + ", ".join(
+                      f"{n} {e:.2e} (|ref| {r:.2e})" for e, n, r in rel[:6]),
+                  flush=True)
+            check(all(d <= GRAD_RTOL * r + GRAD_ATOL
+                      for d, r in grad_err.values()),
+                  f"{sname} gradients of all {len(grad_err)} tensors within "
+                  f"{GRAD_RTOL:g} |ref| + {GRAD_ATOL:g} of the CPU's (worst "
+                  f"{worst}: {grad_err[worst][0]:.3e} of "
+                  f"{grad_err[worst][1]:.3e})")
+        # (b) open and (c) closed through run_training, (d) their validation
+        for sname, warm, timed in (("open", 3, 20), ("closed", 1, 5)):
+            closed = sname == "closed"
+            gen_s = synthetic_batches(np.random.RandomState(10 + closed),
+                                      SPLINE_BATCH, SPLINE_POINTS, GRID,
+                                      closed)
+            batches = [next(gen_s) for _ in range(warm + timed + 2)]
+            cfg = Config(model_path=f"chip_smoke_{sname}",
+                         batch_size=SPLINE_BATCH, grid_size=GRID, lr=1e-3,
+                         loss_weight=0.9, num_epochs=1, seed=0,
+                         log_dir=os.path.join(OUT_DIR, "train_logs"))
+            timer = StageTimer(True)
+            kernels.reset_launches()
+            res = tsp.run_training(cfg, closed, iter(batches[:-2]),
+                                   iter(batches[-2:]), warm + timed,
+                                   val_steps=2, checkpoint=False,
+                                   device=dev, timer=timer)
+            launches = dict(kernels.LAUNCHES)
+            timer.ms()   # synchronises
+            ev = timer.events
+            ms_step = ev["knn_forward"][warm][0].elapsed_time(
+                ev["optimizer"][-1][1]) / timed
+            stage = {k: sum(a.elapsed_time(b) for a, b in ev[k][warm:])
+                     / timed for k in tsp.STAGES}
+            losses = [st["loss"] for st in res.steps]
+            val_cd = res.epochs[-1]["val_cd"]
+            for k in launches:
+                out["launches"][k] += launches[k]
+            out[sname] = {"ms_per_step": ms_step,
+                          "patches_per_s": SPLINE_BATCH * 1000.0 / ms_step,
+                          "stage_ms_per_step": stage, "losses": losses,
+                          "val_cd": val_cd, "launches": launches,
+                          "warmup_steps": warm, "timed_steps": timed}
+            print(f"[5 train] ({'b' if not closed else 'c'}) {sname}: "
+                  f"{timed} timed steps, {ms_step:.3f} ms/step, "
+                  f"{SPLINE_BATCH * 1000.0 / ms_step:.1f} patches/s; stage "
+                  "ms/step: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in stage.items()),
+                  flush=True)
+            print(f"  losses: {', '.join(f'{v:.5f}' for v in losses)}")
+            print(f"  (d) validation chamfer (sqrt, two-sided, 2 batches): "
+                  f"{val_cd:.6f}; launches {launches}", flush=True)
+            check(all(np.isfinite(v) for v in losses) and np.isfinite(val_cd),
+                  f"{sname} losses and validation chamfer finite")
+            if not closed:
+                first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+                check(last < first, f"open loss falls: mean of the last 5 "
+                      f"{last:.5f} < first 5 {first:.5f}")
+            check(launches["K3"] > 0 and launches["K4"] > 0,
+                  f"{sname} training launched K3 and K4 ({launches})")
+
+    phase(train_run)
+
+    # ---- 6. kernel times at main-path shapes
     entries = []
 
     def kernel_times():
@@ -350,7 +585,7 @@ def main():
             peak = PEAK_BF16 if bf16 else PEAK_FP32
             bound = 1000.0 * max(k1_flops / peak, k1_bytes / HBM_BYTES_S)
             tag = "bf16" if bf16 else "f32"
-            print(f"[5 times] K1 {tag} 10000x128x50: kernel {k_ms:.3f} ms, "
+            print(f"[6 times] K1 {tag} 10000x128x50: kernel {k_ms:.3f} ms, "
                   f"plain {p_ms:.3f} ms, bound {bound:.3f} ms (operations)",
                   flush=True)
             report[f"K1_{tag}_ms"] = (k_ms, p_ms, bound)
@@ -383,7 +618,7 @@ def main():
         p_ms = cuda_ms(lambda: kernels.auction_assign_plain(
             ben, hg._EPS0, hg._ESC_EVERY, hg._ESC, 3000), 5)
         bound = 1000.0 * max(k2_ops / PEAK_FP32, k2_bytes / HBM_BYTES_S)
-        print(f"[5 times] K2 56x56 ({rounds} rounds to assign all): kernel "
+        print(f"[6 times] K2 56x56 ({rounds} rounds to assign all): kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.6f} ms "
               f"({'operations' if k2_ops / PEAK_FP32 > k2_bytes / HBM_BYTES_S else 'bytes'})",
               flush=True)
@@ -419,21 +654,87 @@ def main():
             err = max(err, float((kernels.min_sqdist_with_idx(qq, xx)[0]
                                   - kernels.min_sqdist_with_idx_plain(
                                       qq, xx)[0]).abs().max()))
-            print(f"[5 times] K3 {nq}x{mx}: kernel {km:.4f} ms, plain "
+            print(f"[6 times] K3 {nq}x{mx}: kernel {km:.4f} ms, plain "
                   f"{pm:.4f} ms, cdist {lm:.4f} ms, bound {b:.4f} ms "
                   "(operations)", flush=True)
             tot["ms"] += km
             tot["plain_ms"] += pm
             tot["library_ms"] += lm
             tot["bound"] += b
+        # K3 batched at the training shape: one launch per train step
+        train_l = report.get("train", {}).get(
+            "launches", {k: 0 for k in kernels.LAUNCHES})
+        bq, nq, mx = tq.shape[0], tq.shape[1], tx.shape[1]
+        t_bound = 1000.0 * max(8 * bq * nq * mx / PEAK_FP32,
+                               bq * ((nq + mx) * 12 + nq * 8) / HBM_BYTES_S)
+        t_ms = cuda_ms(lambda: kernels.min_sqdist_with_idx(tq, tx), 50)
+        t_plain = cuda_ms(lambda: kernels.min_sqdist_with_idx_plain(tq, tx),
+                          10)
+        t_lib = cuda_ms(lambda: torch.cdist(tq, tx).pow(2).min(2), 10)
+        print(f"[6 times] K3 batched {bq}x({nq} vs {mx}): kernel "
+              f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, cdist {t_lib:.4f} ms, "
+              f"bound {t_bound:.5f} ms (operations)", flush=True)
         entries.append({
             "name": "min_sqdist_idx", "route": "cuda",
             "source": "parsenet_tpu_torch/csrc/min_sqdist.cu",
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:418",
-            "launches": launches["K3"], "max_abs_err": err,
+            "launches": launches["K3"] + train_l["K3"],
+            "max_abs_err": max(err, report.get("K3_train_max_abs_err", 0.0)),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound"], "bound_by": "operations",
-            "library_ms": tot["library_ms"]})
+            "library_ms": tot["library_ms"],
+            "launches_inference": launches["K3"],
+            "launches_train": train_l["K3"],
+            "train_ms": t_ms, "train_plain_ms": t_plain,
+            "train_bound_ms": t_bound, "train_library_ms": t_lib})
+
+        # K4 at the training shape, on K3's argmins
+        idx = kernels.min_sqdist_with_idx(tq, tx)[1]
+        rows = (idx.long() + mx * torch.arange(bq, device=dev)[:, None]
+                ).reshape(-1)
+        # q, idx, g read and dq written per query; each distinct argmin row
+        # of x read once; dx written once
+        n_rows = int(torch.unique(rows).numel())
+        k4_bytes = bq * nq * (12 + 4 + 4 + 12) + n_rows * 12 + bq * mx * 12
+        k4_bound = 1000.0 * max(bq * nq * 12 / PEAK_FP32,
+                                k4_bytes / HBM_BYTES_S)
+        dq_p, dx_p = kernels.min_sqdist_bwd_plain(tq, tx, idx, g_k4)
+        dx_lib = torch.zeros((bq * mx, 3), device=dev)
+        k4_ms = cuda_ms(lambda: kernels.min_sqdist_bwd(tq, tx, idx, g_k4), 50)
+        k4_plain = cuda_ms(lambda: kernels.min_sqdist_bwd_plain(
+            tq, tx, idx, g_k4), 20)
+        k4_lib = cuda_ms(lambda: dx_lib.index_add_(
+            0, rows, dq_p.reshape(-1, 3), alpha=-1.0), 20)
+        print(f"[6 times] K4 {bq}x({nq} vs {mx}): kernel {k4_ms:.4f} ms, "
+              f"plain {k4_plain:.4f} ms, index_add_ {k4_lib:.4f} ms, bound "
+              f"{k4_bound:.5f} ms (bytes: {k4_bytes} bytes, {n_rows} "
+              "distinct argmin rows)", flush=True)
+        entries.append({
+            "name": "min_sqdist_bwd", "route": "cuda",
+            "source": "parsenet_tpu_torch/csrc/min_sqdist_bwd.cu",
+            "replaces": "parsenet_tpu/ops/pallas_kernels.py:463",
+            "launches": train_l["K4"],
+            "max_abs_err": report.get("K4_max_abs_err"),
+            "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
+            "bound_by": "bytes", "library_ms": k4_lib})
+
+        # K5: one step at 10,000 x 128 (no program path runs it)
+        k5_bound = 1000.0 * max(4 * n * n * d / PEAK_FP32,
+                                3 * n * d * 4 / HBM_BYTES_S)
+        k5_ms = cuda_ms(lambda: kernels.mean_shift_step(m5, embn, inv2b2), 5)
+        k5_plain = cuda_ms(lambda: kernels.mean_shift_step_plain(
+            m5, embn, inv2b2), 5)
+        print(f"[6 times] K5 10000x128 one step: kernel {k5_ms:.3f} ms, "
+              f"plain {k5_plain:.3f} ms, bound {k5_bound:.3f} ms "
+              "(operations)", flush=True)
+        entries.append({
+            "name": "ms_step", "route": "cuda",
+            "source": "parsenet_tpu_torch/csrc/ms_iterations.cu",
+            "replaces": "parsenet_tpu/ops/pallas_kernels.py:83",
+            "launches": launches["K5"] + train_l["K5"],
+            "max_abs_err": report.get("K5_max_abs_err"),
+            "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
+            "bound_by": "operations", "library_ms": None})
 
     phase(kernel_times)
     report["kernels"] = entries

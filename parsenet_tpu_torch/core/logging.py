@@ -1,0 +1,52 @@
+"""Run logs: stdout plus a per-run logfile, an append-only metrics.jsonl
+and the config snapshot.
+
+Counterpart of parsenet_tpu/core/logging.py (reference train_parsenet.py:
+37-60), without the TensorBoard writer: the metrics live in the jsonl.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Dict
+
+
+def setup_logging(log_dir: str, name: str) -> logging.Logger:
+    """The package logger, to stdout and {log_dir}/logs/{name}.log."""
+    os.makedirs(f"{log_dir}/logs", exist_ok=True)
+    logger = logging.getLogger("parsenet_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    if not logger.handlers:
+        fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
+        for handler in (logging.StreamHandler(),
+                        logging.FileHandler(f"{log_dir}/logs/{name}.log")):
+            handler.setFormatter(fmt)
+            logger.addHandler(handler)
+    return logger
+
+
+class MetricsLogger:
+    """One JSON line per log() in {log_dir}/tensorboard/{name}/metrics.jsonl
+    (the JAX package's path)."""
+
+    def __init__(self, log_dir: str, name: str):
+        self.dir = os.path.join(log_dir, "tensorboard", name)
+        os.makedirs(self.dir, exist_ok=True)
+        self.jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        rec = {"step": step, "time": time.time(), **metrics}
+        self.jsonl.write(json.dumps(rec) + "\n")
+        self.jsonl.flush()
+
+    def close(self) -> None:
+        self.jsonl.close()
+
+
+def snapshot_config(config, log_dir: str, name: str) -> None:
+    """{log_dir}/configs/{name}.json (reference: train_parsenet.py:52-60)."""
+    os.makedirs(f"{log_dir}/configs", exist_ok=True)
+    config.write(f"{log_dir}/configs/{name}.json")

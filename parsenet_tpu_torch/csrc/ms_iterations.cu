@@ -1,7 +1,11 @@
-// K1: all mean-shift iterations of a row tile, with the tile kept on chip.
+// K1: all mean-shift iterations of a row tile, with the tile kept on chip;
+// and K5, one mean-shift step of separate queries, as a mode of the same
+// kernel.
 //
 // Replaces: parsenet_tpu/ops/pallas_kernels.py, mean_shift_iterations_pallas
-// (pallas_call at :212, kernel body _make_ms_multi_kernel :107-182).
+// (pallas_call at :212, kernel body _make_ms_multi_kernel :107-182), and
+// mean_shift_step_pallas (pallas_call at :83, kernel body _ms_step_kernel
+// :27-57).
 //
 // Computes, for `iterations` steps with m0 = X (rows unit-norm, D = 128):
 //   s = m . X^T,  K = exp((2 s - 2) * inv2b2)  (columns >= n masked to 0),
@@ -10,9 +14,15 @@
 // (round-to-nearest-even) and accumulated in f32, as the TPU kernel's
 // bf16_dots does; the row sum always takes the unrounded f32 K.
 //
+// K5 (`ms_step`) is the same kernel with the query rows m0 [nq, D] apart
+// from the keys X [nk, D], one iteration, f32 dots. It masks the key columns
+// by the key count nk; the TPU kernel masks them by the query count (its
+// only caller passes m = x, where the two agree).
+//
 // Bound on this card: operations. One iteration is two N x N x D products,
 // 4 N^2 D FLOP (5.1e10 at N = 10,000), so 2.56e12 FLOP per 50-iteration
-// call, against 5.1 MB of X that stays in the 50 MB L2.
+// call, against 5.1 MB of X that stays in the 50 MB L2. A K5 step is one
+// such iteration, 4 Nq Nk D FLOP.
 //
 // Design: the TPU kernel keeps all of X in VMEM; a Hopper block has at most
 // 227 KB of shared memory, so here one block owns a 64-row tile of m in
@@ -42,8 +52,9 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
-ms_iterations_kernel(const float* __restrict__ x, float* __restrict__ out,
-                     const float* __restrict__ inv2b2_ptr, int n,
+ms_iterations_kernel(const float* __restrict__ m0,
+                     const float* __restrict__ x, float* __restrict__ out,
+                     const float* __restrict__ inv2b2_ptr, int n_rows, int n,
                      int iterations, int bf16) {
     extern __shared__ float4 smem4[];
     float* ms = reinterpret_cast<float*>(smem4);   // [TM][LD]  m tile
@@ -59,8 +70,8 @@ ms_iterations_kernel(const float* __restrict__ x, float* __restrict__ out,
     for (int e = tid; e < TM * (D / 4); e += THREADS) {
         const int r = e / (D / 4), c4 = e % (D / 4);
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 + r < n)
-            v = reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * D)[c4];
+        if (row0 + r < n_rows)
+            v = reinterpret_cast<const float4*>(m0 + (size_t)(row0 + r) * D)[c4];
         *reinterpret_cast<float4*>(ms + r * LD + c4 * 4) = v;
     }
 
@@ -204,27 +215,41 @@ ms_iterations_kernel(const float* __restrict__ x, float* __restrict__ out,
     __syncthreads();
     for (int e = tid; e < TM * (D / 4); e += THREADS) {
         const int r = e / (D / 4), c4 = e % (D / 4);
-        if (row0 + r < n)
+        if (row0 + r < n_rows)
             reinterpret_cast<float4*>(out + (size_t)(row0 + r) * D)[c4] =
                 *reinterpret_cast<const float4*>(ms + r * LD + c4 * 4);
     }
 }
 
-}  // namespace
-
-// x, out: [n, 128] f32 contiguous; inv2b2: one f32 on the device.
-// Returns cudaGetLastError() after the launch.
-extern "C" int ms_iterations(const void* x, void* out, const void* inv2b2,
-                             int n, int iterations, int bf16, void* stream) {
-    if (n <= 0 || iterations < 0) return (int)cudaErrorInvalidValue;
+int launch(const void* m0, const void* x, void* out, const void* inv2b2,
+           int n_rows, int n, int iterations, int bf16, void* stream) {
+    if (n_rows <= 0 || n <= 0 || iterations < 0)
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         ms_iterations_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    const int grid = (n + TM - 1) / TM;
+    const int grid = (n_rows + TM - 1) / TM;
     ms_iterations_kernel<<<grid, THREADS, SMEM_BYTES,
                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<float*>(out),
-        static_cast<const float*>(inv2b2), n, iterations, bf16);
+        static_cast<const float*>(m0), static_cast<const float*>(x),
+        static_cast<float*>(out), static_cast<const float*>(inv2b2), n_rows,
+        n, iterations, bf16);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1. x, out: [n, 128] f32 contiguous; inv2b2: one f32 on the device.
+// Returns cudaGetLastError() after the launch.
+extern "C" int ms_iterations(const void* x, void* out, const void* inv2b2,
+                             int n, int iterations, int bf16, void* stream) {
+    return launch(x, x, out, inv2b2, n, n, iterations, bf16, stream);
+}
+
+// K5. m, out: [nq, 128], x: [nk, 128] f32 contiguous; inv2b2: one f32 on
+// the device. One f32 step of every row of m against the keys x.
+extern "C" int ms_step(const void* m, const void* x, void* out,
+                       const void* inv2b2, int nq, int nk, void* stream) {
+    return launch(m, x, out, inv2b2, nq, nk, 1, 0, stream);
 }

@@ -1,14 +1,20 @@
 """Synthetic CAD-like shapes (numpy), the port's copy.
 
 Same generator as parsenet_tpu/data/synthetic.py (make_shape,
-make_shape_batch and the helpers they use), draw for draw, so a
-RandomState seed gives bitwise-equal arrays in both packages. Multi-segment
-point clouds from random planes / spheres / cylinders / cones / spline-like
-height fields, with per-point segment labels, normals and primitive types.
+make_shape_batch, make_spline_patch, make_spline_batch and the helpers they
+use), draw for draw, so a RandomState seed gives bitwise-equal arrays in
+both packages. Multi-segment point clouds from random planes / spheres /
+cylinders / cones / spline-like height fields, with per-point segment
+labels, normals and primitive types; and SplineNet training patches with
+their control grids.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+
+from ..ops.bspline import uniform_knot_bspline
 
 # primitive taxonomy (reference: readme_data.md:36-47)
 PRIM_PLANE, PRIM_OPEN_SPLINE, PRIM_CONE = 1, 2, 3
@@ -105,3 +111,49 @@ def make_shape_batch(rng, batch: int, num_points: int = 10000, **kw):
     """(points [B,N,3], labels [B,N], normals [B,N,3], prim [B,N])."""
     out = [make_shape(rng, num_points, **kw) for _ in range(batch)]
     return tuple(np.stack([o[i] for o in out]) for i in range(4))
+
+
+@functools.lru_cache(maxsize=None)
+def _sample_basis(grid: int):
+    """The 40 x 40 sample basis of a grid (read only; built once)."""
+    return uniform_knot_bspline(grid, grid, 3, 3, 40)
+
+
+def make_spline_patch(rng: np.random.RandomState, num_points: int = 700,
+                      grid: int = 20, closed: bool = False):
+    """One SplineNet training sample: (points [N, 3], control grid
+    [G, G, 3]): a random smooth control grid (wrapped around a cylinder-like
+    shape when closed) and points drawn from its surface, sampled with the
+    training basis, plus a little jitter."""
+    if closed:
+        th = np.linspace(0, 2 * np.pi, grid, endpoint=False)
+        z = np.linspace(-1, 1, grid)
+        r = 1.0 + 0.3 * rng.randn(1) + 0.2 * np.sin(th * rng.randint(1, 4))[:, None]
+        cp = np.stack([r * np.cos(th)[:, None] + 0 * z[None, :],
+                       r * np.sin(th)[:, None] + 0 * z[None, :],
+                       np.broadcast_to(z[None, :], (grid, grid)).copy()], -1)
+    else:
+        u = np.linspace(-1, 1, grid)
+        uu, vv = np.meshgrid(u, u, indexing="ij")
+        f = rng.rand(2) * 2 + 0.5
+        hh = 0.4 * np.sin(f[0] * uu * np.pi * 0.5) * np.cos(f[1] * vv * np.pi * 0.5)
+        hh += 0.1 * rng.randn(grid, grid)
+        hh = 0.25 * (np.roll(hh, 1, 0) + np.roll(hh, -1, 0)
+                     + np.roll(hh, 1, 1) + np.roll(hh, -1, 1))
+        cp = np.stack([uu, vv, hh], -1)
+    cp = cp.astype(np.float32)
+    nu, nv = _sample_basis(grid)
+    surf = np.einsum("gu,uvc,hv->ghc", nu, cp, nv).reshape(-1, 3)
+    idx = rng.randint(0, surf.shape[0], num_points)
+    jitter = rng.randn(num_points, 3).astype(np.float32) * 0.002
+    return (surf[idx] + jitter).astype(np.float32), cp
+
+
+def make_spline_batch(rng, batch: int, num_points: int = 700, grid: int = 20,
+                      closed: bool = False):
+    pts, cps = [], []
+    for _ in range(batch):
+        p, c = make_spline_patch(rng, num_points, grid, closed)
+        pts.append(p)
+        cps.append(c)
+    return np.stack(pts), np.stack(cps)

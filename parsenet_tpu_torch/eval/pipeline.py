@@ -17,13 +17,13 @@ come from an explicit torch.Generator on the run's device.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core.guards import EPS, entry_device
+from ..core.profiling import StageTimer
 from ..ops.chamfer import min_sqdist
 from ..ops.mean_shift import guard_mean_shift
 from ..ops.primitive_dist import (GEOM_CONE, GEOM_CYLINDER, GEOM_SPHERE,
@@ -42,35 +42,6 @@ COV_TRIM_POINTS = 2500  # input subsample the trim test runs against
 
 STAGES = ("dgcnn", "mean_shift", "siou", "fits_sampling", "residual",
           "coverage")
-
-
-class StageTimer:
-    """Device time per pipeline stage from CUDA events. Each `with
-    timer(stage)` records an event pair on the current stream; `ms()`
-    synchronises and sums them. Disabled (a no-op) off the card."""
-
-    def __init__(self, enabled: bool):
-        self.enabled = enabled
-        self.events: dict[str, list] = {}
-
-    @contextlib.contextmanager
-    def __call__(self, stage: str):
-        if not self.enabled:
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self.events.setdefault(stage, []).append((start, end))
-
-    def ms(self) -> dict[str, float]:
-        torch.cuda.synchronize()
-        return {k: sum(s.elapsed_time(e) for s, e in v)
-                for k, v in self.events.items()}
 
 
 _NO_TIMER = StageTimer(False)

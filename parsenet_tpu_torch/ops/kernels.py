@@ -1,11 +1,13 @@
 """The hand-written CUDA kernels, their wrappers, plain versions and counts.
 
-Counterpart of parsenet_tpu/ops/pallas_kernels.py. Each TPU kernel on the
-inference path is a CUDA C++ source for sm_90a under `csrc/`:
+Counterpart of parsenet_tpu/ops/pallas_kernels.py. Each TPU kernel is a
+CUDA C++ source for sm_90a under `csrc/`:
 
   K1 ms_iterations.cu   <- mean_shift_iterations_pallas
   K2 auction_assign.cu  <- auction_assign_pallas
-  K3 min_sqdist.cu      <- min_sqdist_with_idx_pallas
+  K3 min_sqdist.cu      <- min_sqdist_with_idx_pallas (batched)
+  K4 min_sqdist_bwd.cu  <- the backward of min_sqdist_fused's custom VJP
+  K5 ms_iterations.cu   <- mean_shift_step_pallas, a mode of K1's kernel
 
 `build_kernels` compiles every source with nvcc into a plain-C shared
 library under `csrc/build/` (one nvcc per source, all started together; a
@@ -13,6 +15,11 @@ library whose source hash is already built is reused) and loads it with
 ctypes. A wrapper given CUDA tensors launches its kernel on the current
 stream or raises; only CPU tensors go to the plain PyTorch version beside
 it. `LAUNCHES` counts kernel launches, one per wrapper call that launches.
+
+K1, K2, K5 and the raw K3 have no backward: given an input that requires
+grad while grad mode is on they raise, on every device, instead of
+returning a result with no `grad_fn`. The differentiable min-sqdist is
+`MinSqdist` (K3 forward, K4 backward).
 """
 from __future__ import annotations
 
@@ -29,22 +36,25 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"K1": "ms_iterations.cu", "K2": "auction_assign.cu",
-           "K3": "min_sqdist.cu"}
+           "K3": "min_sqdist.cu", "K4": "min_sqdist_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-LAUNCHES = {name: 0 for name in SOURCES}
-BUILD_LOG: dict[str, str] = {}
-_LIBS: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = {
-    "K1": ("ms_iterations", [_P, _P, _P, _I, _I, _I, _P]),
-    "K2": ("auction_assign", [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
-    "K3": ("min_sqdist_idx", [_P, _P, _P, _P, _P, _I, _I, _P]),
+# kernel -> (library it lives in, C function, argtypes); K5 is K1's kernel
+ENTRIES = {
+    "K1": ("K1", "ms_iterations", [_P, _P, _P, _I, _I, _I, _P]),
+    "K2": ("K2", "auction_assign", [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
+    "K3": ("K3", "min_sqdist_idx", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "K4": ("K4", "min_sqdist_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "K5": ("K1", "ms_step", [_P, _P, _P, _P, _I, _I, _P]),
 }
+
+LAUNCHES = {name: 0 for name in ENTRIES}
+BUILD_LOG: dict[str, str] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -92,29 +102,38 @@ def build_kernels() -> float:
         raise RuntimeError("kernels: nvcc failed\n" + "\n".join(failed))
     for name in SOURCES:
         if name not in _LIBS:
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _LIBS[name] = lib
+            _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    for lib, fn_name, argtypes in ENTRIES.values():
+        fn = getattr(_LIBS[lib], fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return time.perf_counter() - t0
 
 
 def _launch(name: str, *args) -> None:
-    if name not in _LIBS:
+    lib, fn_name, _ = ENTRIES[name]
+    if lib not in _LIBS:
         build_kernels()
-    fn = getattr(_LIBS[name], _ARGTYPES[name][0])
     stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
+    rc = getattr(_LIBS[lib], fn_name)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"kernels: {SOURCES[name]} launch failed with "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"kernels: {SOURCES[lib]}:{fn_name} launch failed "
+                           f"with cudaError {rc}")
     LAUNCHES[name] += 1
 
 
-def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs, False for CPU inputs; anything else raises."""
+def _on_cuda(name: str, *tensors: torch.Tensor, scalars=()) -> bool:
+    """The dispatch rule of every wrapper: True for CUDA inputs, False for
+    CPU inputs; mixed or other devices raise. So does, on any device, an
+    input (or a tensor among `scalars`) that requires grad while grad mode
+    is on: the kernels have no backward of their own."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (*tensors, *scalars)):
+        raise ValueError(f"{name}: an input requires grad, but this kernel "
+                         "has no backward; call it under torch.no_grad() or "
+                         "use kernels.MinSqdist for a differentiable "
+                         "min-sqdist")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
@@ -169,7 +188,7 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
     iterations. The TPU kernel's tol > 0 early exit is not ported."""
     if tol > 0.0:
         raise ValueError("mean_shift_iterations: tol > 0 is not supported")
-    if not _on_cuda("mean_shift_iterations", X):
+    if not _on_cuda("mean_shift_iterations", X, scalars=(bandwidth,)):
         return mean_shift_iterations_plain(X, bandwidth, iterations,
                                            bf16_dots)
     _check("mean_shift_iterations", X, torch.float32, 2)
@@ -183,6 +202,43 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
     out = torch.empty_like(xp)
     _launch("K1", xp.data_ptr(), out.data_ptr(), inv2b2.data_ptr(), n,
             int(iterations), int(bool(bf16_dots)))
+    return out[:, :d]
+
+
+def mean_shift_step_plain(m: torch.Tensor, x: torch.Tensor,
+                          inv2b2) -> torch.Tensor:
+    """One f32 mean-shift step of the queries m [Nq, D] against the keys x
+    [Nk, D]: normalize((K @ x) / (rowsum K + 1e-12)), K = exp((2 m.x - 2)
+    inv2b2) over all Nk keys."""
+    s = m @ x.T
+    k = torch.exp((2.0 * s - 2.0) * inv2b2)
+    new_m = (k @ x) / (torch.sum(k, dim=1, keepdim=True) + 1e-12)
+    return new_m / (torch.linalg.norm(new_m, dim=1, keepdim=True) + 1e-12)
+
+
+def mean_shift_step(m: torch.Tensor, x: torch.Tensor,
+                    inv2b2) -> torch.Tensor:
+    """K5, the one-step mode of K1's kernel. m [Nq, D], x [Nk, D] f32,
+    D <= 128, inv2b2 = 1 / (2 b^2) -> [Nq, D]. The key columns are masked
+    by Nk; the TPU kernel masks them by Nq, which agrees at m = x, its only
+    use."""
+    if not _on_cuda("mean_shift_step", m, x, scalars=(inv2b2,)):
+        return mean_shift_step_plain(m, x, inv2b2)
+    _check("mean_shift_step m", m, torch.float32, 2)
+    _check("mean_shift_step x", x, torch.float32, 2)
+    (nq, d), nk = m.shape, x.shape[0]
+    if nq == 0 or nk == 0 or d > MS_WIDTH or x.shape[1] != d:
+        raise ValueError(f"mean_shift_step: kernel takes non-empty [Nq, D] "
+                         f"and [Nk, D], D <= {MS_WIDTH}, got "
+                         f"{tuple(m.shape)}, {tuple(x.shape)}")
+    pad = (lambda t: t if d == MS_WIDTH else torch.nn.functional.pad(
+        t, (0, MS_WIDTH - d)).contiguous())
+    mp, xp = pad(m), pad(x)
+    inv = torch.as_tensor(inv2b2, dtype=torch.float32,
+                          device=m.device).reshape(1).contiguous()
+    out = torch.empty_like(mp)
+    _launch("K5", mp.data_ptr(), xp.data_ptr(), out.data_ptr(),
+            inv.data_ptr(), nq, nk)
     return out[:, :d]
 
 
@@ -289,48 +345,126 @@ PLAIN_QUERY_CHUNK = 8192  # query rows per [chunk, M] block of the plain version
 
 def _penalty(x: torch.Tensor, x_mask: Optional[torch.Tensor]) -> torch.Tensor:
     if x_mask is None:
-        return torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+        return torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     return torch.where(x_mask > 0, 0.0, MIN_SQDIST_BIG).to(torch.float32)
+
+
+def _as_batch(q, x, x_mask):
+    """2-d inputs -> a batch of one: (q3, x3, mask3, squeeze)."""
+    if q.dim() == 2:
+        return (q[None], x[None], None if x_mask is None else x_mask[None],
+                True)
+    return q, x, x_mask, False
 
 
 def min_sqdist_with_idx_plain(q: torch.Tensor, x: torch.Tensor,
                               x_mask: Optional[torch.Tensor] = None):
-    """Per query of q [N, 3]: (min_j (qq - 2 q.x_j + xx_j) + pen_j, first
-    argmin) over x [M, 3]; masked targets get +1e30. -> ([N] f32, [N] int32)."""
-    pen = _penalty(x, x_mask)
-    xx = torch.sum(x * x, dim=1)
+    """Per query of q [N, 3] (or [B, N, 3]): (min_j (qq - 2 q.x_j + xx_j) +
+    pen_j, first argmin) over x [M, 3] (or patch b's x [B, M, 3]); masked
+    targets get +1e30. -> ([N] f32, [N] int32), or [B, N] each."""
+    q, x, x_mask, squeeze = _as_batch(q, x, x_mask)
+    pen = _penalty(x, x_mask)                                 # [B, M]
+    xx = torch.sum(x * x, dim=2)
+    xt = x.transpose(1, 2)
     dists, idxs = [], []
-    for s in range(0, q.shape[0], PLAIN_QUERY_CHUNK):
-        qc = q[s:s + PLAIN_QUERY_CHUNK]
-        qq = torch.sum(qc * qc, dim=1, keepdim=True)
-        d = (qq - 2.0 * (qc @ x.T)) + xx[None, :] + pen[None, :]
-        i = torch.argmin(d, dim=1)
-        dists.append(torch.gather(d, 1, i[:, None])[:, 0])
+    for s in range(0, q.shape[1], PLAIN_QUERY_CHUNK):
+        qc = q[:, s:s + PLAIN_QUERY_CHUNK]
+        qq = torch.sum(qc * qc, dim=2, keepdim=True)
+        d = (qq - 2.0 * (qc @ xt)) + xx[:, None, :] + pen[:, None, :]
+        i = torch.argmin(d, dim=2)
+        dists.append(torch.gather(d, 2, i[..., None])[..., 0])
         idxs.append(i)
-    d = torch.clamp(torch.cat(dists), max=MIN_SQDIST_BIG)
-    i = torch.clamp(torch.cat(idxs), 0, x.shape[0] - 1).to(torch.int32)
-    return d, i
+    d = torch.clamp(torch.cat(dists, 1), max=MIN_SQDIST_BIG)
+    i = torch.clamp(torch.cat(idxs, 1), 0, x.shape[1] - 1).to(torch.int32)
+    return (d[0], i[0]) if squeeze else (d, i)
 
 
 def min_sqdist_with_idx(q: torch.Tensor, x: torch.Tensor,
                         x_mask: Optional[torch.Tensor] = None):
     """K3. q [N, 3], x [M, 3], optional x_mask [M] (> 0 keeps a target) ->
-    (min squared distance [N] f32, argmin [N] int32 clipped to [0, M-1])."""
+    (min squared distance [N] f32, argmin [N] int32 clipped to [0, M-1]).
+    Batched: q [B, N, 3], x [B, M, 3], x_mask [B, M] -> [B, N] each, one
+    launch. No backward: see `MinSqdist`."""
     tensors = (q, x) if x_mask is None else (q, x, x_mask)
     if not _on_cuda("min_sqdist_with_idx", *tensors):
         return min_sqdist_with_idx_plain(q, x, x_mask)
-    _check("min_sqdist_with_idx q", q, torch.float32, 2)
-    _check("min_sqdist_with_idx x", x, torch.float32, 2)
-    if q.shape[1] != 3 or x.shape[1] != 3 or q.shape[0] == 0 or x.shape[0] == 0:
+    q3, x3, mask3, squeeze = _as_batch(q, x, x_mask)
+    _check("min_sqdist_with_idx q", q3, torch.float32, 3)
+    _check("min_sqdist_with_idx x", x3, torch.float32, 3)
+    (b, n, c), (bx, m, cx) = q3.shape, x3.shape
+    if c != 3 or cx != 3 or b != bx or min(b, n, m) == 0:
         raise ValueError(f"min_sqdist_with_idx: kernel takes non-empty "
-                         f"[N, 3] and [M, 3], got {tuple(q.shape)}, "
+                         f"[B, N, 3] and [B, M, 3], got {tuple(q.shape)}, "
                          f"{tuple(x.shape)}")
-    if x_mask is not None and x_mask.shape != (x.shape[0],):
+    if mask3 is not None and mask3.shape != (b, m):
         raise ValueError(f"min_sqdist_with_idx: mask {tuple(x_mask.shape)} "
                          f"does not match x {tuple(x.shape)}")
-    pen = _penalty(x, x_mask).contiguous()
-    out = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
-    idx = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
-    _launch("K3", q.data_ptr(), x.data_ptr(), pen.data_ptr(), out.data_ptr(),
-            idx.data_ptr(), q.shape[0], x.shape[0])
-    return out, idx
+    pen = _penalty(x3, mask3).contiguous()
+    out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    _launch("K3", q3.data_ptr(), x3.data_ptr(), pen.data_ptr(),
+            out.data_ptr(), idx.data_ptr(), b, n, m)
+    return (out[0], idx[0]) if squeeze else (out, idx)
+
+
+# ---------------------------------------------------------------------------
+# K4: backward of the differentiable min squared distance
+# ---------------------------------------------------------------------------
+
+def min_sqdist_bwd_plain(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
+                         g: torch.Tensor):
+    """dq = 2 (q - x[idx]) g, dx = scatter-add of -dq at idx (gather +
+    index_add_). q [B, N, 3], x [B, M, 3], idx, g [B, N] -> (dq, dx)."""
+    b, m = x.shape[0], x.shape[1]
+    rows = (idx.long() + m * torch.arange(b, device=x.device)[:, None])
+    xa = x.reshape(b * m, 3)[rows.reshape(-1)].reshape(q.shape)
+    dq = 2.0 * (q - xa) * g[..., None]
+    dx = torch.zeros((b * m, 3), dtype=x.dtype, device=x.device)
+    dx.index_add_(0, rows.reshape(-1), -dq.reshape(-1, 3))
+    return dq, dx.reshape(x.shape)
+
+
+def min_sqdist_bwd(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
+                   g: torch.Tensor):
+    """K4. The backward of `MinSqdist` for q [B, N, 3], x [B, M, 3], the
+    forward's argmin idx [B, N] int32 and the incoming gradient g [B, N] f32
+    -> (dq [B, N, 3], dx [B, M, 3]). dx sums with float atomics on the
+    card, so its last bits depend on the order of the adds."""
+    if not _on_cuda("min_sqdist_bwd", q, x, idx, g):
+        return min_sqdist_bwd_plain(q, x, idx, g)
+    for label, t, dtype, ndim in (("q", q, torch.float32, 3),
+                                  ("x", x, torch.float32, 3),
+                                  ("idx", idx, torch.int32, 2),
+                                  ("g", g, torch.float32, 2)):
+        _check(f"min_sqdist_bwd {label}", t, dtype, ndim)
+    (b, n, _), m = q.shape, x.shape[1]
+    if x.shape != (b, m, 3) or q.shape[2] != 3 or idx.shape != (b, n) \
+            or g.shape != (b, n) or min(b, n, m) == 0:
+        raise ValueError(f"min_sqdist_bwd: shapes q {tuple(q.shape)}, x "
+                         f"{tuple(x.shape)}, idx {tuple(idx.shape)}, g "
+                         f"{tuple(g.shape)}")
+    dq = torch.empty_like(q)
+    dx = torch.empty_like(x)
+    _launch("K4", q.data_ptr(), x.data_ptr(), idx.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dx.data_ptr(), b, n, m)
+    return dq, dx
+
+
+class MinSqdist(torch.autograd.Function):
+    """Differentiable min squared distance, min_sqdist_fused's counterpart:
+    the forward is K3 (saving q, x and the argmin), the backward K4, the
+    subgradient through the argmin. q [B, N, 3], x [B, M, 3], optional
+    x_mask [B, M] (not differentiated) -> [B, N]."""
+
+    @staticmethod
+    def forward(ctx, q, x, x_mask=None):
+        d, idx = min_sqdist_with_idx(q, x, x_mask)
+        ctx.save_for_backward(q, x, idx)
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        q, x, idx = ctx.saved_tensors
+        dq, dx = min_sqdist_bwd(q, x, idx, g.contiguous())
+        return (dq if ctx.needs_input_grad[0] else None,
+                dx if ctx.needs_input_grad[1] else None, None)

@@ -1,9 +1,11 @@
 """Port parity: K3's plain version against the Pallas min-sqdist kernel
-(interpret mode), and the reference-protocol coverage against the JAX
-package with the same uniforms."""
+(interpret mode), K4 (MinSqdist's backward) against min_sqdist_fused's
+VJP, the chamfer distances against the JAX package, and the
+reference-protocol coverage with the same uniforms."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from parsenet_tpu.eval import pipeline as jp
@@ -93,3 +95,173 @@ def test_protocol_coverage_matches_jax(rng):
                                torch.from_numpy(w), torch.from_numpy(u))
     for a, b in zip(got, ref):
         np.testing.assert_allclose(float(a), float(b), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3 batched, K4 (MinSqdist) and the chamfer distances of the training path
+# ---------------------------------------------------------------------------
+
+from parsenet_tpu.ops import chamfer as jch  # noqa: E402
+from parsenet_tpu.ops.pallas_kernels import min_sqdist_fused  # noqa: E402
+from parsenet_tpu_torch.ops import chamfer as tch  # noqa: E402
+
+
+def test_k3_plain_batched_matches_pallas(rng):
+    """One batched plain call against jax.vmap of the Pallas kernel, which
+    is how the TPU path batches it."""
+    q = rng.randn(3, 100, 3).astype(np.float32)
+    x = rng.randn(3, 160, 3).astype(np.float32)
+    mask = (rng.rand(3, 160) < 0.7).astype(np.float32)
+    ref_d, ref_i = jax.vmap(lambda a, b, m: min_sqdist_with_idx_pallas(
+        a, b, m, interpret=True))(jnp.asarray(q), jnp.asarray(x),
+                                  jnp.asarray(mask))
+    d, i = kernels.min_sqdist_with_idx(torch.from_numpy(q),
+                                       torch.from_numpy(x),
+                                       torch.from_numpy(mask))
+    assert d.shape == (3, 100) and i.dtype == torch.int32
+    np.testing.assert_allclose(d.numpy(), np.asarray(ref_d), rtol=1e-5,
+                               atol=1e-6)
+    for b in range(3):
+        keep = mask[b] > 0
+        uniq = _unique_min(q[b], x[b][keep])
+        np.testing.assert_array_equal(i.numpy()[b][uniq],
+                                      np.asarray(ref_i)[b][uniq])
+
+
+def _k4_grads(q, x, g):
+    qt = torch.from_numpy(q).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    if q.ndim == 2:
+        d = tch.min_sqdist(qt, xt)
+    else:
+        d = kernels.MinSqdist.apply(qt, xt)
+    (d * torch.from_numpy(g)).sum().backward()
+    return d.detach().numpy(), qt.grad.numpy(), xt.grad.numpy()
+
+
+@pytest.mark.parametrize("shape", [(40, 90), (3, 100, 160)])
+def test_k4_gradients_match_pallas_vjp(rng, shape):
+    """K4's plain version through MinSqdist against min_sqdist_fused's
+    custom VJP (interpret mode), with a random incoming gradient: 1e-5
+    relative and absolute, as tests/test_pallas.py holds the VJP."""
+    lead, n, m = (shape[:-2], shape[-2], shape[-1])
+    q = rng.randn(*lead, n, 3).astype(np.float32)
+    x = rng.randn(*lead, m, 3).astype(np.float32)
+    g = rng.rand(*lead, n).astype(np.float32)
+
+    def f(a, b):
+        fn = lambda a_, b_: min_sqdist_fused(a_, b_, None, True)
+        d = jax.vmap(fn)(a, b) if a.ndim == 3 else fn(a, b)
+        return jnp.sum(d * jnp.asarray(g))
+
+    rq, rx = jax.grad(f, argnums=(0, 1))(jnp.asarray(q), jnp.asarray(x))
+    _, gq, gx = _k4_grads(q, x, g)
+    np.testing.assert_allclose(gq, np.asarray(rq), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gx, np.asarray(rx), rtol=1e-5, atol=1e-5)
+    assert np.abs(gx).max() > 0
+
+
+def test_k4_masked_targets_get_no_gradient(rng):
+    q = rng.randn(2, 30, 3).astype(np.float32)
+    x = rng.randn(2, 50, 3).astype(np.float32)
+    mask = np.ones((2, 50), np.float32)
+    mask[:, ::3] = 0
+    xt = torch.from_numpy(x).requires_grad_()
+    tch.min_sqdist(torch.from_numpy(q), xt, torch.from_numpy(mask)).sum() \
+        .backward()
+    assert float(xt.grad[:, ::3].abs().max()) == 0.0
+    assert float(xt.grad.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_chamfer_distance_matches_jax(rng, sqrt):
+    x = rng.randn(2, 64, 3).astype(np.float32)
+    y = rng.randn(2, 48, 3).astype(np.float32)
+    y_mask = (rng.rand(2, 48) < 0.8).astype(np.float32)
+
+    def jf(a, b):
+        return jch.chamfer_distance(a, b, None, jnp.asarray(y_mask),
+                                    sqrt=sqrt)
+
+    ref, (rgx, rgy) = jax.value_and_grad(jf, argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(y))
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = torch.from_numpy(y).requires_grad_()
+    got = tch.chamfer_distance(xt, yt, None, torch.from_numpy(y_mask),
+                               sqrt=sqrt)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(rgx), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(yt.grad.numpy(), np.asarray(rgy), rtol=1e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_chamfer_one_side_matches_jax(rng, side):
+    """The spline training loss direction (side 1) and its reverse:
+    values 1e-5 relative, gradients 1e-4 relative."""
+    x = rng.randn(3, 80, 3).astype(np.float32)
+    y = rng.randn(3, 50, 3).astype(np.float32)
+    ref, (rgx, rgy) = jax.value_and_grad(
+        lambda a, b: jch.chamfer_distance_one_side(a, b, side=side),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = torch.from_numpy(y).requires_grad_()
+    got = tch.chamfer_distance_one_side(xt, yt, side=side)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(rgx), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(yt.grad.numpy(), np.asarray(rgy), rtol=1e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("one_side", [False, True])
+def test_chamfer_single_shape_matches_jax(rng, one_side):
+    x = rng.randn(70, 3).astype(np.float32)
+    y = rng.randn(40, 3).astype(np.float32)
+    ref = jch.chamfer_distance_single_shape(jnp.asarray(x), jnp.asarray(y),
+                                            sqrt=True, one_side=one_side)
+    got = tch.chamfer_distance_single_shape(torch.from_numpy(x),
+                                            torch.from_numpy(y), sqrt=True,
+                                            one_side=one_side)
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+
+
+def test_kernels_without_backward_refuse_inputs_that_require_grad(rng):
+    """The rule is the dispatch helper's, so it holds on every device: an
+    input that requires grad raises while grad mode is on, and passes under
+    torch.no_grad(). MinSqdist is the differentiable route."""
+    q = torch.from_numpy(rng.randn(20, 3).astype(np.float32))
+    qg = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        kernels._on_cuda("any kernel", q, qg)
+    with pytest.raises(ValueError, match="requires grad"):
+        kernels._on_cuda("any kernel", q, scalars=(torch.ones((),
+                                                   requires_grad=True),))
+    assert kernels._on_cuda("any kernel", q, scalars=(0.5,)) is False
+    with torch.no_grad():
+        assert kernels._on_cuda("any kernel", qg) is False
+    e = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(16, 8).astype(np.float32)), dim=1)
+    calls = [
+        lambda: kernels.min_sqdist_with_idx(qg, q),
+        lambda: kernels.mean_shift_iterations(e.requires_grad_(), 0.5, 2),
+        lambda: kernels.mean_shift_iterations(
+            e.detach(), torch.tensor(0.5, requires_grad=True), 2),
+        lambda: kernels.mean_shift_step(e.detach(), e.detach(),
+                                        torch.tensor(2.0,
+                                                     requires_grad=True)),
+        lambda: kernels.auction_assign(torch.rand(6, 6, requires_grad=True),
+                                       1e-5, 150, 8.0, 10),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="requires grad"):
+            call()
+    with torch.no_grad():
+        for call in calls:
+            call()
+    d = tch.min_sqdist(qg, q + 1.0)
+    d.sum().backward()
+    assert d.grad_fn is not None and float(qg.grad.abs().max()) > 0

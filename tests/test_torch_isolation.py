@@ -83,6 +83,14 @@ def test_kernel_wrappers_take_no_other_device():
     with pytest.raises(ValueError, match="CUDA device"):
         kernels.auction_assign(torch.empty((8, 8), device="meta"), 1e-5,
                                150, 8.0, 10)
+    m = torch.empty((8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.mean_shift_step(m, m, 2.0)
+    q = torch.empty((2, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.min_sqdist_bwd(q, q, torch.empty((2, 8), device="meta",
+                                                 dtype=torch.int32),
+                               torch.empty((2, 8), device="meta"))
 
 
 def test_kernel_sources_target_sm90a():

@@ -102,3 +102,47 @@ def test_bandwidth_statistics_match_jax(rng):
         np.testing.assert_allclose(
             float(tms._escalation_bandwidth(dt, np.float32(q))),
             float(jms._escalation_bandwidth(d, jnp.float32(q))), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K5: one mean-shift step, queries apart from keys (a mode of K1's kernel)
+# ---------------------------------------------------------------------------
+
+def test_k5_plain_matches_pallas_step(rng):
+    """At m = x (Nq = Nk), the Pallas kernel's only use, where its column
+    mask by the query count and the port's by the key count agree: rtol
+    2e-4, atol 2e-5, as tests/test_pallas.py holds the kernel."""
+    from parsenet_tpu.ops.pallas_kernels import mean_shift_step_pallas
+    x = _unit_rows(rng, 300, 8)
+    inv2b2 = 1.0 / (2 * 0.3 * 0.3)
+    ref = mean_shift_step_pallas(jnp.asarray(x), jnp.asarray(x),
+                                 jnp.float32(inv2b2), interpret=True)
+    got = kernels.mean_shift_step(torch.from_numpy(x), torch.from_numpy(x),
+                                  inv2b2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("nq,nk", [(200, 340), (340, 200)])
+def test_k5_masks_keys_by_key_count(rng, nq, nk):
+    """With Nq != Nk every one of the Nk keys counts and nothing else: the
+    dense float64 formula, 1e-5."""
+    m = _unit_rows(rng, nq, 16)
+    x = _unit_rows(rng, nk, 16)
+    inv2b2 = 1.0 / (2 * 0.4 * 0.4)
+    k = np.exp((2.0 * m.astype(np.float64) @ x.T - 2.0) * inv2b2)
+    new = (k @ x) / (k.sum(1, keepdims=True) + 1e-12)
+    new /= np.linalg.norm(new, axis=1, keepdims=True) + 1e-12
+    got = kernels.mean_shift_step(torch.from_numpy(m), torch.from_numpy(x),
+                                  inv2b2)
+    assert got.shape == (nq, 16)
+    np.testing.assert_allclose(got.numpy(), new, rtol=1e-5, atol=1e-5)
+
+
+def test_k5_step_is_one_k1_iteration(rng):
+    x = torch.from_numpy(_unit_rows(rng, 128, 32))
+    bw = 0.35
+    np.testing.assert_allclose(
+        kernels.mean_shift_step(x, x, 1.0 / (2 * bw * bw)).numpy(),
+        kernels.mean_shift_iterations(x, bw, 1).numpy(), rtol=1e-6,
+        atol=1e-6)
