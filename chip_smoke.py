@@ -8,10 +8,21 @@ Phases, one line each (plus detail lines):
   1. device: name, count, capability (must be 9.0), nvidia-smi name and
      power limit;
   2. build: nvcc of every kernel source under parsenet_tpu_torch/csrc;
+     the ptxas lines (registers, spills, warnings) and the count of HGMMA
+     (wgmma) instructions in the SASS of the tensor-core K1, which must be
+     > 0;
   3. kernel vs plain on the card at main-path shapes:
      K1 mean-shift at 10,000 x 128, 50 iterations, the bandwidth of a
-        stream-a embedding: f32 max |d| <= 1e-3 and the same NMS clustering
-        (cluster numbering aside); bf16 co-membership >= 0.99;
+        stream-a embedding: f32 (FFMA kernel) max |d| <= 1e-3 and the same
+        NMS clustering (cluster numbering aside); bf16 (tensor-core kernel)
+        on ms_plan's grid (every SM, partial sums exchanged) and on one
+        block per 128 rows (no exchange): max |d| <= 1e-4 after 1
+        iteration and <= 1e-2 after 50, NMS co-membership >= 0.99; the
+        same max |d| limits on both grids for clustered rows at N = 100,
+        1,000 (D = 64) and 4,999 (f32 there too: <= 1e-3), and after 50
+        iterations on each of 8 stream-a embeddings at its own bandwidth
+        (co-membership >= 0.99, the minimum printed); 0 iterations give X
+        back in both modes without a launch;
      K2 auction on SIOU-structured and random 50 x 50 costs: identical
         assignments, every completed one a permutation;
      K3 min-sqdist at 10k x 10k, 204,800 x 2,500 (masked) and, batched,
@@ -28,7 +39,8 @@ Phases, one line each (plus detail lines):
      10k points, bf16 mean-shift, spline_fit=None, shipped params) through
      parsenet_tpu_torch.eval.pipeline.run_batch; quality against the
      configs/quality_floors.json "bench" floors, shapes/hour, per-stage ms
-     from CUDA events, and launches > 0 for K1, K2 and K3;
+     from CUDA events, and launches > 0 for the tensor-core K1, K2 and
+     K3, none for the FFMA K1 (the slice runs bf16);
   5. train: SplineNet at full width (grid 20, k 10, 36 patches of 700
      points, 40 x 40 surface samples, anisotropic, loss_weight 0.9, Adam
      at lr 1e-3):
@@ -47,8 +59,12 @@ Phases, one line each (plus detail lines):
      (d) each run's validation: eval_step's two-sided sqrt chamfer on 2
          batches;
   6. kernel times at main-path shapes beside the plain version, the bound
-     and the library yardstick where one PyTorch call computes the same
-     (torch.cdist for K3, index_add_ for K4's scatter).
+     and the library yardstick where PyTorch computes the same
+     (sdpa_mean_shift for K1, torch.cdist for K3, index_add_ for K4's
+     scatter); for K1 also the achieved TFLOP/s, the share of the bound,
+     the floor the exponentials set on the MUFU units, the tensor-core
+     launch alone, without the wrapper's tiling and allocations, and its
+     two grids at 10,000 and 4,999 rows.
 The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Any failed check exits non-zero without the
 ok line; without a CUDA device it exits 1 at once.
@@ -68,11 +84,17 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 HBM_BYTES_S = 3.35e12
+# ex2 per second on the MUFU units: 132 SMs x 16 a clock (compute
+# capability 9.0) at 1.83 GHz, the clock at which 132 x 4,096 bf16 FLOP a
+# clock make the 989 TFLOP/s above
+MUFU_EX2_S = 132 * 16 * 1.83e9
 
 # spline-free stream-a quality of the JAX package (artifacts/
 # r5_infer_ablate.jsonl, arm "splines"), printed beside the port's
 REFERENCE = {"seg_iou": 0.8907, "residual": 0.00907, "p_cov": 0.01523,
              "sk_2": 0.8899}
+# the port's stream-a quality with the FFMA K1 (PERF.md, PR 2's runs)
+PORT_FFMA_K1 = {"seg_iou": 0.89263, "residual": 0.00861, "sk_2": 0.88841}
 
 # SplineNet training: full width, and the batch of each parity step:
 # make_spline_batch(RandomState(seed), 36, 700, 20, closed), mean-centred
@@ -107,6 +129,11 @@ PARITY_RTOL = (1e-3, 5e-3)
 # the same near-tied choices; GRAD_ATOL covers the round-off gradients
 # (norms 1e-11 to 1e-9) of the biases ahead of a BatchNorm.
 GRAD_RTOL, GRAD_ATOL = 0.1, 1e-8
+# The tensor-core K1 against the plain bf16 version, max |d|: after one
+# iteration only the order of the f32 sums and ex2.approx against exp
+# differ; over 50 iterations those differences steer rows that sit between
+# modes a little apart.
+K1TC_TOL_1, K1TC_TOL_50 = 1e-4, 1e-2
 
 FAILURES = []
 
@@ -133,6 +160,15 @@ def nvidia_smi_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_count(lib, op):
+    """Lines of `cuobjdump -sass lib` that hold the instruction `op`."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                          str(lib)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    return sum(op in line for line in out.splitlines())
 
 
 def cuda_ms(fn, reps):
@@ -187,6 +223,32 @@ def unique_min_mask(q, x, margin=1e-5, chunk=8192):
     return torch.cat(out)
 
 
+def sdpa_mean_shift(X, bandwidth, iterations):
+    """K1's library yardstick, timed beside it and used nowhere in the port:
+    `iterations` steps of m <- normalize(softmax(2 inv2b2 m X^T) X), one
+    F.scaled_dot_product_attention each, in X's dtype. The softmax's max
+    shift cancels the kernel's constant factor exp(-2 inv2b2), so in f32
+    this is kernels.mean_shift_iterations_plain up to round-off."""
+    import torch
+    import torch.nn.functional as F
+    scale = 1.0 / float(bandwidth) ** 2      # 2 inv2b2
+    x = X[None, None]
+    m = x
+    for _ in range(iterations):
+        m = F.scaled_dot_product_attention(m, x, x, scale=scale)
+        m = m / (torch.linalg.norm(m, dim=-1, keepdim=True) + 1e-12)
+    return m[0, 0]
+
+
+def clustered(rng, n, d, k=12, noise=0.08):
+    """n unit rows of width d around k random unit centres."""
+    import numpy as np
+    c = rng.randn(k, d)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    x = c[rng.randint(0, k, n)] + noise * rng.randn(n, d)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
 def rounds_to_assign(kernels, hg, benefit):
     """Fewest auction rounds after which the plain version has assigned
     every person (the work this input needs); the round cap if never."""
@@ -236,6 +298,7 @@ def main():
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     cap = torch.cuda.get_device_capability(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     smi = nvidia_smi_line()
     print(f"[1 device] {name} count={count} capability={cap[0]}.{cap[1]} "
           f"nvidia-smi: {smi} torch {torch.__version__} cuda "
@@ -247,12 +310,21 @@ def main():
 
     # ---- 2. build
     build_s = kernels.build_kernels()
-    print(f"[2 build] {len(kernels.SOURCES)} kernels in {build_s:.2f} s",
-          flush=True)
+    report = {"device": name, "nvidia_smi": smi, "build_s": build_s}
+    print(f"[2 build] {len(kernels.SOURCES)} kernel sources in "
+          f"{build_s:.2f} s", flush=True)
     for kname, log in kernels.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "arning")):
                 print(f"  {kname} ptxas: {line.strip()}")
+
+    def wgmma_in_sass():
+        hgmma = sass_count(kernels._lib_path("K1tc"), "HGMMA")
+        report["K1tc_hgmma"] = hgmma
+        check(hgmma > 0, f"K1tc SASS holds {hgmma} HGMMA (wgmma) "
+              "instructions")
+
+    phase(wgmma_in_sass)
 
     # ---- shared inputs: stream a exactly as bench.py builds it
     n_batch, warmup, iters, n_pts = 4, 2, 8, 10000
@@ -272,7 +344,6 @@ def main():
                       + 1e-12)).contiguous()
     bw = ms._initial_bandwidth(ms._subset_sqdist(embn, 5000, generator=gen),
                                0.015)
-    report = {"device": name, "nvidia_smi": smi, "build_s": build_s}
 
     # ---- shared training inputs: the parity batches, and surfaces at the
     # training shape (each open batch grid sampled 40 x 40, plus noise)
@@ -298,27 +369,111 @@ def main():
 
     # ---- 3. kernels against their plain versions
     def kernel_checks():
-        print(f"[3 kernel vs plain] K1 bandwidth {float(bw):.6f}", flush=True)
-        for bf16 in (False, True):
-            k_out = kernels.mean_shift_iterations(embn, bw, 50, bf16_dots=bf16)
-            p_out = kernels.mean_shift_iterations_plain(embn, bw, 50,
-                                                        bf16_dots=bf16)
+        print(f"[3 kernel vs plain] K1 bandwidth {float(bw):.6f}; K1tc "
+              f"(grid, slots) {kernels.ms_plan(embn.shape[0], sms)}",
+              flush=True)
+        # K1 f32 (FFMA kernel)
+        k_out = kernels.mean_shift_iterations(embn, bw, 50)
+        p_out = kernels.mean_shift_iterations_plain(embn, bw, 50)
+        k_lab = ms.nms(k_out, embn, bw)[1].cpu().numpy()
+        p_lab = ms.nms(p_out, embn, bw)[1].cpu().numpy()
+        err = float((k_out - p_out).abs().max())
+        report["K1_f32_max_abs_err"] = err
+        check(err <= 1e-3, f"K1 f32 max |d| {err:.3e} <= 1e-3")
+        check(np.array_equal(canonical(k_lab), canonical(p_lab)),
+              f"K1 f32 NMS clustering identical ({k_lab.max() + 1} "
+              "clusters)")
+        for bf16 in (False, True):   # no iteration: X back, no launch
+            before = dict(kernels.LAUNCHES)
+            same = bool(torch.equal(kernels.mean_shift_iterations(
+                embn, bw, 0, bf16_dots=bf16), embn))
+            check(same and kernels.LAUNCHES == before,
+                  f"K1 {'bf16' if bf16 else 'f32'} 0 iterations: X back, "
+                  "no launch")
+
+        # K1 bf16 (tensor-core kernel) against the plain bf16 version, on
+        # ms_plan's grid (every SM, partial sums exchanged) and on one block
+        # per 128-row block (no exchange): max |d| after 1 iteration <=
+        # K1TC_TOL_1, after 50 <= K1TC_TOL_50; NMS co-membership >= 0.99
+        def k1tc(x, b, it, one_block):
+            if not one_block:
+                return kernels.mean_shift_iterations(x, b, it, bf16_dots=True)
+            return kernels._ms_iterations_tc(
+                x, kernels._inv2b2(b, dev), it,
+                -(-x.shape[0] // kernels.MS_BLOCK_ROWS))[:, :x.shape[1]]
+
+        def k1tc_checks(tag, x, b, one_block, its=(1, 50)):
+            grid = "one block per 128 rows" if one_block else "ms_plan grid"
+            errs = {}
+            for it in its:
+                k_out = k1tc(x, b, it, one_block)
+                p_out = kernels.mean_shift_iterations_plain(x, b, it,
+                                                            bf16_dots=True)
+                errs[it] = float((k_out - p_out).abs().max())
+                tol = K1TC_TOL_1 if it == 1 else K1TC_TOL_50
+                check(errs[it] <= tol, f"K1tc bf16 {tag}, {grid}, {it} it: "
+                      f"max |d| {errs[it]:.3e} <= {tol:g}")
+            return errs, k_out, p_out
+
+        x_tag = f"stream a {embn.shape[0]} x {embn.shape[1]}"
+        for one_block in (False, True):
+            errs, k_out, p_out = k1tc_checks(x_tag, embn, bw, one_block)
             k_lab = ms.nms(k_out, embn, bw)[1].cpu().numpy()
             p_lab = ms.nms(p_out, embn, bw)[1].cpu().numpy()
-            err = float((k_out - p_out).abs().max())
             agree = co_membership(k_lab, p_lab)
-            tag = "bf16" if bf16 else "f32"
-            report[f"K1_{tag}_max_abs_err"] = err
-            report[f"K1_{tag}_co_membership"] = agree
-            if bf16:
-                check(agree >= 0.99, f"K1 bf16 co-membership {agree:.6f} "
-                      f">= 0.99 (max |d| {err:.3e}, clusters "
-                      f"{k_lab.max() + 1}/{p_lab.max() + 1})")
-            else:
-                check(err <= 1e-3, f"K1 f32 max |d| {err:.3e} <= 1e-3")
-                check(np.array_equal(canonical(k_lab), canonical(p_lab)),
-                      f"K1 f32 NMS clustering identical ({k_lab.max() + 1} "
-                      "clusters)")
+            key = "K1tc_one_block" if one_block else "K1_bf16"
+            report[f"{key}_max_abs_err"] = errs[50]
+            report[f"{key}_max_abs_err_1"] = errs[1]
+            report[f"{key}_co_membership"] = agree
+            check(agree >= 0.99, f"K1tc bf16 {x_tag}, "
+                  f"{'one block per 128 rows' if one_block else 'ms_plan grid'}"
+                  f": co-membership {agree:.6f} >= 0.99 (clusters "
+                  f"{k_lab.max() + 1}/{p_lab.max() + 1})")
+
+        # ragged N, D < 128, a single row block: clustered unit rows at
+        # bandwidth 0.2, both grids; the f32 kernel at the same shapes
+        rng_c = np.random.RandomState(0)
+        for n_c, d_c in ((100, 128), (1000, 64), (4999, 128)):
+            xc = torch.from_numpy(clustered(rng_c, n_c, d_c)).to(dev)
+            for one_block in (False, True):
+                k1tc_checks(f"clustered {n_c} x {d_c}", xc, 0.2, one_block)
+            err = float((kernels.mean_shift_iterations(xc, 0.2, 50)
+                         - kernels.mean_shift_iterations_plain(xc, 0.2, 50))
+                        .abs().max())
+            check(err <= 1e-3, f"K1 f32 clustered {n_c} x {d_c}, 50 it: "
+                  f"max |d| {err:.3e} <= 1e-3")
+
+        # the tensor-core K1 on 8 stream-a embeddings at their own bandwidth
+        gen_e = torch.Generator(device=dev)   # leaves `gen` to the slice
+        gen_e.manual_seed(3)
+        agrees, errs, bf16_vs_f32 = [], [], []
+        for i in range(8):
+            with torch.no_grad():
+                e = model(torch.from_numpy(np.concatenate(
+                    [pts[i:i + 1], normals[i:i + 1]], -1)).to(dev))[0][0]
+            e = (e / (torch.linalg.norm(e, dim=-1, keepdim=True)
+                      + 1e-12)).contiguous()
+            b = ms._initial_bandwidth(ms._subset_sqdist(e, 5000,
+                                                        generator=gen_e),
+                                      0.015)
+            err, k_out, p_out = k1tc_checks(f"stream-a embedding {i}", e, b,
+                                            False, its=(50,))
+            p_lab = ms.nms(p_out, e, b)[1].cpu().numpy()
+            errs.append(err[50])
+            agrees.append(co_membership(ms.nms(k_out, e, b)[1].cpu().numpy(),
+                                        p_lab))
+            # the scale of NMS's own sensitivity: plain bf16 against f32
+            f32_lab = ms.nms(kernels.mean_shift_iterations_plain(e, b, 50), e,
+                             b)[1].cpu().numpy()
+            bf16_vs_f32.append(co_membership(p_lab, f32_lab))
+        report["K1tc_co_membership_8"] = agrees
+        report["K1tc_max_abs_err_8"] = errs
+        report["plain_bf16_vs_f32_co_membership_8"] = bf16_vs_f32
+        print("  (plain bf16 against plain f32, co-membership: "
+              + ", ".join(f"{v:.6f}" for v in bf16_vs_f32) + ")")
+        check(min(agrees) >= 0.99, f"K1tc bf16 co-membership on 8 stream-a "
+              f"embeddings: min {min(agrees):.6f} >= 0.99 (each: "
+              + ", ".join(f"{v:.6f}" for v in agrees) + ")")
 
         rng = np.random.RandomState(0)
         costs = []
@@ -442,8 +597,10 @@ def main():
               f"{n_shapes / dt * 3600.0:.1f} shapes/hour, "
               f"{1000.0 * dt / n_shapes:.2f} ms/shape", flush=True)
         print("  quality: " + ", ".join(
-            f"{k} {mean[k]:.5f}" + (f" (JAX spline-free {REFERENCE[k]})"
+            f"{k} {mean[k]:.5f}" + (f" (JAX spline-free {REFERENCE[k]}"
                                     if k in REFERENCE else "")
+            + (f", FFMA K1 {PORT_FFMA_K1[k]}" if k in PORT_FFMA_K1 else "")
+            + (")" if k in REFERENCE else "")
             for k in ("seg_iou", "prim_iou", "residual", "p_cov", "sk_2")))
         print(f"  clusters per shape: mean {mean['num_clusters']:.2f}, max "
               f"{max(metrics['num_clusters'])}")
@@ -456,9 +613,11 @@ def main():
               f"residual {mean['residual']:.5f} <= {floors['residual_max']}")
         check(mean["sk_2"] >= floors["sk_2_min"],
               f"sk_2 {mean['sk_2']:.4f} >= {floors['sk_2_min']}")
-        for kname in ("K1", "K2", "K3"):
+        for kname in ("K1tc", "K2", "K3"):
             check(launches[kname] > 0,
                   f"{kname} launched on the slice ({launches[kname]})")
+        check(launches["K1"] == 0, f"the FFMA K1 not launched on the slice "
+              f"({launches['K1']})")
         check(all(np.isfinite(v) for v in mean.values()),
               "slice metrics finite")
 
@@ -577,27 +736,70 @@ def main():
         n, d, it = embn.shape[0], embn.shape[1], 50
         k1_bytes = 2 * n * d * 4
         k1_flops = it * 4 * n * n * d
+        mufu_ms = 1000.0 * it * n * n / MUFU_EX2_S
+        bw_f = float(bw)
         for bf16 in (False, True):
             k_ms = cuda_ms(lambda: kernels.mean_shift_iterations(
-                embn, bw, it, bf16_dots=bf16), 3)
+                embn, bw, it, bf16_dots=bf16), 10 if bf16 else 3)
             p_ms = cuda_ms(lambda: kernels.mean_shift_iterations_plain(
                 embn, bw, it, bf16_dots=bf16), 3)
+            xs = embn.to(torch.bfloat16) if bf16 else embn
+            l_ms = cuda_ms(lambda: sdpa_mean_shift(xs, bw_f, it), 3)
             peak = PEAK_BF16 if bf16 else PEAK_FP32
             bound = 1000.0 * max(k1_flops / peak, k1_bytes / HBM_BYTES_S)
             tag = "bf16" if bf16 else "f32"
-            print(f"[6 times] K1 {tag} 10000x128x50: kernel {k_ms:.3f} ms, "
-                  f"plain {p_ms:.3f} ms, bound {bound:.3f} ms (operations)",
-                  flush=True)
-            report[f"K1_{tag}_ms"] = (k_ms, p_ms, bound)
-        k_ms, p_ms, bound = report["K1_bf16_ms"]  # the slice runs bf16
-        entries.append({
-            "name": "ms_iterations", "route": "cuda",
-            "source": "parsenet_tpu_torch/csrc/ms_iterations.cu",
-            "replaces": "parsenet_tpu/ops/pallas_kernels.py:212",
-            "launches": launches["K1"],
-            "max_abs_err": report.get("K1_bf16_max_abs_err"),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": "operations", "library_ms": None})
+            print(f"[6 times] K1 {tag} ({'tensor cores' if bf16 else 'FFMA'})"
+                  f" 10000x128x50: kernel {k_ms:.3f} ms "
+                  f"({k1_flops / k_ms / 1e9:.1f} TFLOP/s, "
+                  f"{100.0 * bound / k_ms:.1f}% of the bound), plain "
+                  f"{p_ms:.3f} ms, SDPA yardstick {l_ms:.3f} ms, bound "
+                  f"{bound:.3f} ms (operations)"
+                  + (f", exp floor on the MUFU units {mufu_ms:.3f} ms"
+                     if bf16 else ""), flush=True)
+            report[f"K1_{tag}_ms"] = (k_ms, p_ms, bound, l_ms)
+        # the tensor-core launch alone, without the wrapper's tiling and
+        # allocations (the counters zeroed as the wrapper does)
+        grid, slots = kernels.ms_plan(n, sms)
+        blocks = -(-n // kernels.MS_BLOCK_ROWS)
+        xt = kernels.ms_tiles_bf16(embn)
+        out = torch.empty((n, kernels.MS_WIDTH), device=dev)
+        ws = torch.empty(2 * blocks * slots * kernels.MS_PART_FLOATS,
+                         device=dev)
+        counters = torch.zeros(blocks, dtype=torch.int32, device=dev)
+        inv = kernels._inv2b2(bw, dev)
+        bare_ms = cuda_ms(lambda: (counters.zero_(), kernels._launch(
+            "K1tc", xt.data_ptr(), out.data_ptr(), inv.data_ptr(),
+            ws.data_ptr(), counters.data_ptr(), n, it, grid, slots)), 10)
+        report["K1tc_launch_alone_ms"] = bare_ms
+        print(f"  K1 bf16 launch alone (pre-tiled, grid {grid}, slots "
+              f"{slots}): {bare_ms:.3f} ms", flush=True)
+        # the tensor-core K1's two grids at 10,000 and 4,999 stream-a rows,
+        # and the 10,000 rows at bandwidth 0.2 (ms_plan's grid)
+        grids = {}
+        for rows in (n, 4999):
+            x_r = embn[:rows].contiguous()
+            for g in (kernels.ms_plan(rows, sms)[0],
+                      -(-rows // kernels.MS_BLOCK_ROWS)):
+                grids[f"{rows} rows, grid {g}"] = cuda_ms(
+                    lambda: kernels._ms_iterations_tc(x_r, inv, it, g), 10)
+        inv_02 = kernels._inv2b2(0.2, dev)
+        grids[f"{n} rows, grid {grid}, bandwidth 0.2"] = cuda_ms(
+            lambda: kernels._ms_iterations_tc(embn, inv_02, it, grid), 10)
+        report["K1tc_grid_ms"] = grids
+        print("  K1 bf16 through _ms_iterations_tc: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in grids.items()), flush=True)
+        for tag, kname, src in (
+                ("f32", "K1", "ms_iterations"),
+                ("bf16", "K1tc", "ms_iterations_tc")):
+            k_ms, p_ms, bound, l_ms = report[f"K1_{tag}_ms"]
+            entries.append({
+                "name": src, "route": "cuda",
+                "source": f"parsenet_tpu_torch/csrc/{src}.cu",
+                "replaces": "parsenet_tpu/ops/pallas_kernels.py:212",
+                "launches": launches[kname],
+                "max_abs_err": report.get(f"K1_{tag}_max_abs_err"),
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                "bound_by": "operations", "library_ms": l_ms})
 
         # K2 on a main-path SIOU matrix (shape 0's f32 clustering vs GT)
         lab0 = ms.nms(kernels.mean_shift_iterations(embn, bw, it), embn,

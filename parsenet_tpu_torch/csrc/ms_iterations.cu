@@ -1,18 +1,16 @@
-// K1: all mean-shift iterations of a row tile, with the tile kept on chip;
-// and K5, one mean-shift step of separate queries, as a mode of the same
-// kernel.
+// K1, f32 mode: all mean-shift iterations of a row tile, with the tile kept
+// on chip; and K5, one mean-shift step of separate queries, as a mode of the
+// same kernel. K1's bf16 mode is ms_iterations_tc.cu.
 //
 // Replaces: parsenet_tpu/ops/pallas_kernels.py, mean_shift_iterations_pallas
-// (pallas_call at :212, kernel body _make_ms_multi_kernel :107-182), and
+// with f32 dots (pallas_call at :212, kernel body _make_ms_multi_kernel
+// :107-182), and
 // mean_shift_step_pallas (pallas_call at :83, kernel body _ms_step_kernel
 // :27-57).
 //
 // Computes, for `iterations` steps with m0 = X (rows unit-norm, D = 128):
 //   s = m . X^T,  K = exp((2 s - 2) * inv2b2)  (columns >= n masked to 0),
-//   m <- normalize((K @ X) / (rowsum(K) + 1e-12)).
-// With bf16 != 0 both operands of both products are rounded to bf16
-// (round-to-nearest-even) and accumulated in f32, as the TPU kernel's
-// bf16_dots does; the row sum always takes the unrounded f32 K.
+//   m <- normalize((K @ X) / (rowsum(K) + 1e-12)), all in f32.
 //
 // K5 (`ms_step`) is the same kernel with the query rows m0 [nq, D] apart
 // from the keys X [nk, D], one iteration, f32 dots. It masks the key columns
@@ -32,10 +30,9 @@
 // thread), applies exp and the column mask and stores K in shared memory;
 // phase B accumulates K @ X_tile into 4 x 8 register accumulators per
 // thread. Row sums and row norms are reduced across the 16 lanes that share
-// a row with warp shuffles. All arithmetic is FFMA on the CUDA cores; a
-// tensor-core (wgmma) version is later work.
+// a row with warp shuffles. All arithmetic is FFMA on the CUDA cores: the
+// tensor cores have no f32 mode (a 3xTF32 version is later work).
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace {
 
@@ -47,15 +44,11 @@ constexpr int LDK = TN + 4;     // padded row stride of the K tile
 constexpr int THREADS = 256;
 constexpr size_t SMEM_BYTES = sizeof(float) * (TM * LD + TN * LD + TM * LDK);
 
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __global__ void __launch_bounds__(THREADS, 2)
 ms_iterations_kernel(const float* __restrict__ m0,
                      const float* __restrict__ x, float* __restrict__ out,
                      const float* __restrict__ inv2b2_ptr, int n_rows, int n,
-                     int iterations, int bf16) {
+                     int iterations) {
     extern __shared__ float4 smem4[];
     float* ms = reinterpret_cast<float*>(smem4);   // [TM][LD]  m tile
     float* xs = ms + TM * LD;                      // [TN][LD]  X tile
@@ -77,14 +70,6 @@ ms_iterations_kernel(const float* __restrict__ m0,
 
     for (int it = 0; it < iterations; ++it) {
         __syncthreads();
-        if (bf16) {
-            // m is used only as the first product's operand this iteration
-            for (int e = tid; e < TM * D; e += THREADS) {
-                float* p = ms + (e / D) * LD + (e % D);
-                *p = bf16_round(*p);
-            }
-            __syncthreads();
-        }
         float acc[4][8];
         float rs[4];
 #pragma unroll
@@ -101,10 +86,6 @@ ms_iterations_kernel(const float* __restrict__ m0,
                 if (t0 + r < n)
                     v = reinterpret_cast<const float4*>(
                         x + (size_t)(t0 + r) * D)[c4];
-                if (bf16) {
-                    v.x = bf16_round(v.x); v.y = bf16_round(v.y);
-                    v.z = bf16_round(v.z); v.w = bf16_round(v.w);
-                }
                 *reinterpret_cast<float4*>(xs + r * LD + c4 * 4) = v;
             }
             __syncthreads();
@@ -148,8 +129,7 @@ ms_iterations_kernel(const float* __restrict__ m0,
                     const float kv = (col < n)
                         ? expf((2.f * s[i][j] - 2.f) * inv2b2) : 0.f;
                     part[i] += kv;
-                    ks[(tr + 16 * i) * LDK + tc + 16 * j] =
-                        bf16 ? bf16_round(kv) : kv;
+                    ks[(tr + 16 * i) * LDK + tc + 16 * j] = kv;
                 }
 #pragma unroll
                 for (int off = 8; off > 0; off >>= 1)
@@ -222,7 +202,7 @@ ms_iterations_kernel(const float* __restrict__ m0,
 }
 
 int launch(const void* m0, const void* x, void* out, const void* inv2b2,
-           int n_rows, int n, int iterations, int bf16, void* stream) {
+           int n_rows, int n, int iterations, void* stream) {
     if (n_rows <= 0 || n <= 0 || iterations < 0)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
@@ -234,22 +214,22 @@ int launch(const void* m0, const void* x, void* out, const void* inv2b2,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(m0), static_cast<const float*>(x),
         static_cast<float*>(out), static_cast<const float*>(inv2b2), n_rows,
-        n, iterations, bf16);
+        n, iterations);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K1. x, out: [n, 128] f32 contiguous; inv2b2: one f32 on the device.
+// K1, f32. x, out: [n, 128] f32 contiguous; inv2b2: one f32 on the device.
 // Returns cudaGetLastError() after the launch.
 extern "C" int ms_iterations(const void* x, void* out, const void* inv2b2,
-                             int n, int iterations, int bf16, void* stream) {
-    return launch(x, x, out, inv2b2, n, n, iterations, bf16, stream);
+                             int n, int iterations, void* stream) {
+    return launch(x, x, out, inv2b2, n, n, iterations, stream);
 }
 
 // K5. m, out: [nq, 128], x: [nk, 128] f32 contiguous; inv2b2: one f32 on
 // the device. One f32 step of every row of m against the keys x.
 extern "C" int ms_step(const void* m, const void* x, void* out,
                        const void* inv2b2, int nq, int nk, void* stream) {
-    return launch(m, x, out, inv2b2, nq, nk, 1, 0, stream);
+    return launch(m, x, out, inv2b2, nq, nk, 1, stream);
 }

@@ -3,7 +3,9 @@
 Counterpart of parsenet_tpu/ops/pallas_kernels.py. Each TPU kernel is a
 CUDA C++ source for sm_90a under `csrc/`:
 
-  K1 ms_iterations.cu   <- mean_shift_iterations_pallas
+  K1 ms_iterations.cu   <- mean_shift_iterations_pallas, f32 (FFMA)
+  K1tc ms_iterations_tc.cu <- mean_shift_iterations_pallas, bf16_dots
+                          (wgmma; the mode the inference path runs)
   K2 auction_assign.cu  <- auction_assign_pallas
   K3 min_sqdist.cu      <- min_sqdist_with_idx_pallas (batched)
   K4 min_sqdist_bwd.cu  <- the backward of min_sqdist_fused's custom VJP
@@ -24,6 +26,7 @@ returning a result with no `grad_fn`. The differentiable min-sqdist is
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -35,8 +38,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = {"K1": "ms_iterations.cu", "K2": "auction_assign.cu",
-           "K3": "min_sqdist.cu", "K4": "min_sqdist_bwd.cu"}
+SOURCES = {"K1": "ms_iterations.cu", "K1tc": "ms_iterations_tc.cu",
+           "K2": "auction_assign.cu", "K3": "min_sqdist.cu",
+           "K4": "min_sqdist_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,7 +49,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # kernel -> (library it lives in, C function, argtypes); K5 is K1's kernel
 ENTRIES = {
-    "K1": ("K1", "ms_iterations", [_P, _P, _P, _I, _I, _I, _P]),
+    "K1": ("K1", "ms_iterations", [_P, _P, _P, _I, _I, _P]),
+    "K1tc": ("K1tc", "ms_iterations_tc",
+             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "K2": ("K2", "auction_assign", [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
     "K3": ("K3", "min_sqdist_idx", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "K4": ("K4", "min_sqdist_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
@@ -181,11 +187,75 @@ def mean_shift_iterations_plain(X: torch.Tensor, bandwidth, iterations: int,
     return m
 
 
+MS_TILE = 64          # rows of one bf16 tile of X, and of one warpgroup's m
+MS_BLOCK_ROWS = 128   # rows of m per block of the tensor-core kernel
+_MS_TILE_ORDER: dict[str, torch.Tensor] = {}  # device -> tile gather index
+MS_PART_FLOATS = 2 * (MS_TILE * MS_WIDTH + 2 * 128)  # one block's partial
+
+
+@functools.lru_cache(maxsize=None)
+def ms_plan(n: int, sms: int) -> tuple[int, int]:
+    """How the tensor-core K1 spreads N rows over a card with `sms` SMs:
+    (grid, slots). An iteration is blocks x tiles units of work (a 128-row
+    block of m against a 64-row tile of X, blocks = ceil(N / 128), tiles =
+    ceil(N / 64)); grid block g takes units [floor(g U / grid),
+    floor((g + 1) U / grid)) in row-block-major order, as the kernel
+    computes them. With fewer row blocks than SMs, grid = min(sms, U): every
+    SM works, at most two row blocks per grid block, and the grid blocks
+    sharing a row block add their partial sums through the workspace; slots
+    is the most that share one. Otherwise one grid block per row block
+    (grid = blocks, slots = 1, no exchange)."""
+    blocks = -(-n // MS_BLOCK_ROWS)
+    tiles = -(-n // MS_TILE)
+    units = blocks * tiles
+    if blocks >= sms:
+        return blocks, 1
+    grid = min(sms, units)
+
+    def owner(u):   # the largest g with floor(g U / grid) <= u
+        return ((u + 1) * grid - 1) // units
+
+    slots = max(owner(b * tiles + tiles - 1) - owner(b * tiles) + 1
+                for b in range(blocks))
+    return grid, slots
+
+
+def ms_tiles_bf16(X: torch.Tensor) -> torch.Tensor:
+    """The tensor-core K1's operand: X [N, D <= 128] in bf16, zero-padded to
+    [ceil(N / 128) * 128, 128] and cut into 64-row tiles, flat. A tile is
+    two 64-column halves, each 64 rows of 128 bytes in wgmma's 128-byte
+    swizzle: the 16-byte chunk j (columns 8j..8j+7) of row r is stored at
+    chunk j ^ (r % 8). So element (R, C) lies at bf16 offset
+    8192 (R // 64) + 4096 (C // 64) + 64 (R % 64)
+    + 8 (((C % 64) // 8) ^ (R % 8)) + C % 8."""
+    n, d = X.shape
+    n_pad = -(-n // MS_BLOCK_ROWS) * MS_BLOCK_ROWS
+    xb = torch.zeros((n_pad, MS_WIDTH), dtype=torch.bfloat16, device=X.device)
+    xb[:n, :d] = X
+    return xb.view(-1, MS_TILE * MS_WIDTH)[:, _tile_order(X.device)].reshape(-1)
+
+
+def _tile_order(device: torch.device) -> torch.Tensor:
+    """For each position of a swizzled tile, the row-major index (64 x 128)
+    of the element stored there; cached per device."""
+    key = str(device)
+    if key not in _MS_TILE_ORDER:
+        half, row, chunk, elem = torch.meshgrid(
+            torch.arange(2), torch.arange(MS_TILE), torch.arange(8),
+            torch.arange(8), indexing="ij")
+        src = row * MS_WIDTH + half * 64 + (chunk ^ (row % 8)) * 8 + elem
+        _MS_TILE_ORDER[key] = src.reshape(-1).to(device)
+    return _MS_TILE_ORDER[key]
+
+
 def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
                           bf16_dots: bool = False,
                           tol: float = 0.0) -> torch.Tensor:
     """K1. X: [N, D] f32 unit rows, D <= 128 -> [N, D]. One launch runs all
-    iterations. The TPU kernel's tol > 0 early exit is not ported."""
+    iterations: bf16_dots on the tensor-core kernel (ms_iterations_tc.cu),
+    f32 on the FFMA kernel (ms_iterations.cu). No iteration returns a copy
+    of X, as the plain version does, and launches nothing. The TPU kernel's
+    tol > 0 early exit is not ported."""
     if tol > 0.0:
         raise ValueError("mean_shift_iterations: tol > 0 is not supported")
     if not _on_cuda("mean_shift_iterations", X, scalars=(bandwidth,)):
@@ -196,13 +266,37 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
     if n == 0 or d > MS_WIDTH:
         raise ValueError(f"mean_shift_iterations: kernel takes 1 <= N and "
                          f"D <= {MS_WIDTH}, got {tuple(X.shape)}")
+    if iterations < 1:
+        return X.clone()
+    inv2b2 = _inv2b2(bandwidth, X.device)
+    if bf16_dots:
+        sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+        return _ms_iterations_tc(X, inv2b2, int(iterations),
+                                 ms_plan(n, sms)[0])[:, :d]
     xp = X if d == MS_WIDTH else torch.nn.functional.pad(
         X, (0, MS_WIDTH - d)).contiguous()
-    inv2b2 = _inv2b2(bandwidth, X.device)
     out = torch.empty_like(xp)
     _launch("K1", xp.data_ptr(), out.data_ptr(), inv2b2.data_ptr(), n,
-            int(iterations), int(bool(bf16_dots)))
+            int(iterations))
     return out[:, :d]
+
+
+def _ms_iterations_tc(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
+                      grid: int) -> torch.Tensor:
+    """One launch of the tensor-core K1 on CUDA X [N, D <= 128] f32 over
+    `grid` blocks (ms_plan's, or ceil(N / 128) for no exchange) -> [N, 128]
+    f32 (D zero-padded)."""
+    n = X.shape[0]
+    blocks = -(-n // MS_BLOCK_ROWS)
+    slots = 1 if grid == blocks else ms_plan(n, grid)[1]
+    out = torch.empty((n, MS_WIDTH), dtype=torch.float32, device=X.device)
+    ws = torch.empty((2 * blocks * slots * MS_PART_FLOATS if grid > blocks
+                      else 1,), dtype=torch.float32, device=X.device)
+    counters = torch.zeros((blocks,), dtype=torch.int32, device=X.device)
+    _launch("K1tc", ms_tiles_bf16(X).data_ptr(), out.data_ptr(),
+            inv2b2.data_ptr(), ws.data_ptr(), counters.data_ptr(), n,
+            iterations, grid, slots)
+    return out
 
 
 def mean_shift_step_plain(m: torch.Tensor, x: torch.Tensor,

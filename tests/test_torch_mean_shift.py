@@ -67,6 +67,104 @@ def test_k1_wrapper_on_cpu_is_plain(rng):
         kernels.mean_shift_iterations(x, 0.4, 3, tol=1e-6)
 
 
+def test_k1_plain_matches_pallas_bf16_ragged(rng):
+    """N = 200 (not a multiple of 64 or 128) and D = 40 < 128: the shapes
+    the tensor-core kernel pads and masks; the tolerance of the test
+    above."""
+    x = _clustered(rng, 4, 50, d=40)
+    ref = mean_shift_iterations_pallas(jnp.asarray(x), jnp.float32(0.3), 10,
+                                       interpret=True, bf16_dots=True)
+    got = kernels.mean_shift_iterations_plain(torch.from_numpy(x), 0.3, 10,
+                                              bf16_dots=True)
+    assert got.shape == (200, 40)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=2e-2)
+
+
+def test_k1_bf16_wrapper_on_cpu_is_plain(rng):
+    x = torch.from_numpy(_unit_rows(rng, 100, 24))
+    before = dict(kernels.LAUNCHES)
+    got = kernels.mean_shift_iterations(x, 0.4, 3, bf16_dots=True)
+    ref = kernels.mean_shift_iterations_plain(x, 0.4, 3, bf16_dots=True)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k1_zero_iterations_return_x(rng, bf16):
+    """No iteration gives X back in both modes; on the card the wrapper
+    returns a copy before it picks a kernel (chip_smoke phase 3)."""
+    x = torch.from_numpy(_unit_rows(rng, 70, 24))
+    got = kernels.mean_shift_iterations(x, 0.4, 0, bf16_dots=bf16)
+    np.testing.assert_array_equal(got.numpy(), x.numpy())
+
+
+@pytest.mark.parametrize("bandwidth", [0.3, 0.1])
+def test_sdpa_yardstick_matches_plain_f32(rng, bandwidth):
+    """chip_smoke's library yardstick for K1 (scaled_dot_product_attention,
+    then normalize) computes the plain version's function: the softmax's
+    max shift cancels exp(-2 inv2b2). f32 on the CPU, within 1e-5."""
+    import chip_smoke
+    x = torch.from_numpy(_unit_rows(rng, 300, 128))
+    np.testing.assert_allclose(
+        chip_smoke.sdpa_mean_shift(x, bandwidth, 4).numpy(),
+        kernels.mean_shift_iterations_plain(x, bandwidth, 4).numpy(),
+        rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d", [(300, 128), (129, 40), (64, 128)])
+def test_ms_tiles_bf16_layout(rng, n, d):
+    """The tensor-core K1's operand: element (R, C) of bf16(X), zero-padded
+    to [ceil(N / 128) * 128, 128], lies where the kernel's descriptors and
+    tile_offset() read it (64-row tiles of two 64-column halves, 16-byte
+    chunks swizzled by the row mod 8); every other element is 0."""
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    got = kernels.ms_tiles_bf16(x).view(torch.int16).numpy()
+    want = torch.nn.functional.pad(x, (0, 128 - d)).to(
+        torch.bfloat16).view(torch.int16).numpy()
+    n_pad = -(-n // 128) * 128
+    assert got.size == n_pad * 128
+    r, c = np.meshgrid(np.arange(n), np.arange(128), indexing="ij")
+    off = (8192 * (r // 64) + 4096 * (c // 64) + 64 * (r % 64)
+           + 8 * (((c % 64) // 8) ^ (r % 8)) + c % 8)
+    np.testing.assert_array_equal(got[off], want)
+    rest = np.ones(got.size, bool)
+    rest[off.ravel()] = False
+    assert not got[rest].any()
+
+
+@pytest.mark.parametrize("n,sms", [(10000, 132), (4999, 132), (100, 132),
+                                   (1, 132), (192, 132), (16640, 132),
+                                   (16896, 132), (20000, 132), (10000, 7)])
+def test_ms_plan_covers_every_unit(n, sms):
+    """The tensor-core K1's work split, with the ranges the kernel computes
+    (unit_start / unit_owner in ms_iterations_tc.cu): each grid block takes
+    a contiguous, non-empty run of (row block, X tile) units within at most
+    two row blocks; the runs cover every unit once; no row block is shared
+    by more blocks than the workspace has slots; with at least as many row
+    blocks as SMs there is one block per row block and no exchange."""
+    blocks, tiles = -(-n // 128), -(-n // 64)
+    units = blocks * tiles
+    grid, slots = kernels.ms_plan(n, sms)
+    if blocks >= sms:
+        assert (grid, slots) == (blocks, 1)
+    else:
+        assert grid == min(sms, units)
+    starts = [g * units // grid for g in range(grid + 1)]
+    assert starts[0] == 0 and starts[-1] == units
+    sharers = [set() for _ in range(blocks)]
+    for g in range(grid):
+        u0, u1 = starts[g], starts[g + 1]
+        assert u0 < u1
+        rows = {u // tiles for u in range(u0, u1)}
+        assert len(rows) <= 2
+        for b in rows:
+            sharers[b].add(g)
+    assert max(len(s) for s in sharers) == slots
+    assert all(sorted(s) == list(range(min(s), max(s) + 1))
+               for s in sharers)
+
+
 @pytest.mark.parametrize("max_clusters", [49, 3])
 def test_guard_mean_shift_matches_jax(rng, max_clusters):
     """Clustered embeddings; max_clusters=3 below the 6 modes forces the
