@@ -8,9 +8,10 @@ Phases, one line each (plus detail lines):
   1. device: name, count, capability (must be 9.0), nvidia-smi name and
      power limit;
   2. build: nvcc of every kernel source under parsenet_tpu_torch/csrc;
-     the ptxas lines (registers, spills, warnings) and the count of HGMMA
+     the ptxas lines (registers, spills, warnings), the count of HGMMA
      (wgmma) instructions in the SASS of the tensor-core K1, which must be
-     > 0;
+     > 0, and the instructions of K3's scan loop for each R, per (target,
+     query) pair;
   3. kernel vs plain on the card at main-path shapes:
      K1 mean-shift at 10,000 x 128, 50 iterations, the bandwidth of a
         stream-a embedding: f32 (FFMA kernel) max |d| <= 1e-3 and the same
@@ -28,11 +29,17 @@ Phases, one line each (plus detail lines):
      K3 min-sqdist at 10k x 10k, 204,800 x 2,500 (masked) and, batched,
         36 x (700 vs 1,600), the SplineNet training shape:
         |d| <= 1e-6 + 1e-5 |ref|, indices equal wherever the minimum is
-        unique by more than 1e-5;
-     K4 min-sqdist backward at the training shape, on K3's argmins, for a
-        random incoming gradient: dq and dx within 1e-5 + 1e-5 |ref| of
-        gather + index_add_ (dx sums with float atomics, in no fixed
-        order); and MinSqdist's gradients on the card are K4's, not zero;
+        unique by more than 1e-5; on exact ties (integer coordinates,
+        every target twice, shuffled) at 10,000 x 10,000, 204,800 x 2,500
+        and 36 x (700 vs 1,600): d and indices equal everywhere; at ragged
+        sizes (N, M of 1, 63, 65, 1,601), masked, the same limits, and in a
+        batch with one fully masked patch, 1e30 and index 0 there;
+     K4 min-sqdist backward, on K3's argmins, for a random incoming
+        gradient, at the training shape and at 2 x (30,000 vs 40,000) (more
+        than one shared-memory chunk a patch): dq bitwise equal to gather +
+        index_add_, dx within 1e-5 + 1e-5 |ref| (shared-memory atomics, in
+        no fixed order); and MinSqdist's gradients on the card are K4's,
+        not zero;
      K5 one mean-shift step at 10,000 x 128, queries a perturbed copy of
         the stream-a embedding, keys the embedding: max |d| <= 1e-5;
   4. slice: bench.py's stream "a" (seed 7, 2 warm-up + 8 timed batches of 4,
@@ -60,11 +67,16 @@ Phases, one line each (plus detail lines):
          batches;
   6. kernel times at main-path shapes beside the plain version, the bound
      and the library yardstick where PyTorch computes the same
-     (sdpa_mean_shift for K1, torch.cdist for K3, index_add_ for K4's
-     scatter); for K1 also the achieved TFLOP/s, the share of the bound,
-     the floor the exponentials set on the MUFU units, the tensor-core
-     launch alone, without the wrapper's tiling and allocations, and its
-     two grids at 10,000 and 4,999 rows.
+     (sdpa_mean_shift for K1 and, one step, K5, torch.cdist for K3,
+     index_add_ for K4's scatter); for K1 also the achieved TFLOP/s, the
+     share of the bound, the floor the exponentials set on the MUFU units,
+     the tensor-core launch alone, without the wrapper's tiling and
+     allocations, and its two grids at 10,000 and 4,999 rows. Times are
+     CUDA events around back-to-back eager calls (`cuda_ms`, what the
+     program sees); K3 (each of a shape's three inference calls, and the
+     training call), K4 and their yardsticks also get a device time
+     (`graph_ms`: the calls captured in a CUDA graph, events around its
+     replays, so the host's pace is out of it).
 The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Any failed check exits non-zero without the
 ok line; without a CUDA device it exits 1 at once.
@@ -171,8 +183,41 @@ def sass_count(lib, op):
     return sum(op in line for line in out.splitlines())
 
 
+def sass_loop(lib, kernel):
+    """The innermost hot loop of `kernel` (a substring of its mangled name)
+    in `cuobjdump -sass lib`: the backward branch's body with the most FFMA.
+    -> (instructions, FFMA, LDS) in that body, or None if none is found."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                          str(lib)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    ins, inside = [], False   # (address, text) of the kernel's instructions
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if inside and m:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    best = None
+    for addr, text in ins:   # cuobjdump gives branch targets as addresses
+        m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        target = int(m.group(1), 16)
+        body = [t for a, t in ins if target <= a <= addr]
+        ffma = sum(re.search(r"\bFFMA\b", t) is not None for t in body)
+        if best is None or ffma > best[1]:
+            best = (len(body), ffma,
+                    sum(re.search(r"\bLDS\b", t) is not None for t in body))
+    return best
+
+
 def cuda_ms(fn, reps):
-    """Mean device ms of fn() over reps launches after one warm-up."""
+    """Mean ms of fn() over reps calls after one warm-up, by CUDA events
+    around back-to-back eager calls: what the program sees, host work
+    included where the host cannot keep ahead of the card."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -184,6 +229,75 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps, replays=5):
+    """Device ms of one fn() call: reps calls captured in one CUDA graph,
+    CUDA events around `replays` replays of it, so the host's pace and the
+    wrapper's Python are out of the time and only the launches' device
+    work (and the gaps between graph nodes) remain."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the default stream
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
+def time_k3(kernels, q, x, reps):
+    """K3 (`kernels` is a tree's parsenet_tpu_torch.ops.kernels) on q, x
+    and its yardstick torch.cdist(q, x).pow(2).min: eager and device ms."""
+    import torch
+    fn = lambda: kernels.min_sqdist_with_idx(q, x)   # noqa: E731
+    lib = lambda: torch.cdist(q, x).pow(2).min(-1)   # noqa: E731
+    return {"ms": cuda_ms(fn, reps), "device_ms": graph_ms(fn, reps),
+            "library_ms": cuda_ms(lib, 3),
+            "library_device_ms": graph_ms(lib, 3)}
+
+
+def time_k4(kernels, q, x, idx, g, reps):
+    """K4 on the argmins idx and the gradient g, and its yardstick, the
+    scatter of -dq alone by one index_add_: eager and device ms. "ms" is
+    the call MinSqdist.backward makes (the unchecked _min_sqdist_bwd; an
+    older checkout without it called min_sqdist_bwd), "checked_ms" the
+    public wrapper with its checks."""
+    import torch
+    b, m = x.shape[0], x.shape[1]
+    rows = (idx.long() + m * torch.arange(b, device=x.device)[:, None]
+            ).reshape(-1)
+    dq = kernels.min_sqdist_bwd_plain(q, x, idx, g)[0].reshape(-1, 3)
+    dx = torch.zeros((b * m, 3), device=x.device)
+    bwd = getattr(kernels, "_min_sqdist_bwd", kernels.min_sqdist_bwd)
+    fn = lambda: bwd(q, x, idx, g)                            # noqa: E731
+    checked = lambda: kernels.min_sqdist_bwd(q, x, idx, g)    # noqa: E731
+    lib = lambda: dx.index_add_(0, rows, dq, alpha=-1.0)      # noqa: E731
+    return {"ms": cuda_ms(fn, reps), "checked_ms": cuda_ms(checked, reps),
+            "device_ms": graph_ms(fn, reps),
+            "library_ms": cuda_ms(lib, reps),
+            "library_device_ms": graph_ms(lib, reps)}
+
+
+def k3_line(t):
+    return (f"kernel {t['ms']:.4f} ms eager, {t['device_ms']:.4f} ms device; "
+            f"cdist {t['library_ms']:.4f} ms eager, "
+            f"{t['library_device_ms']:.4f} ms device")
 
 
 def canonical(labels):
@@ -213,8 +327,11 @@ def co_membership(a, b):
 
 
 def unique_min_mask(q, x, margin=1e-5, chunk=8192):
-    """Queries whose second-nearest target is more than `margin` farther."""
+    """Queries whose second-nearest target is more than `margin` farther
+    (every query, where there is one target)."""
     import torch
+    if x.shape[0] < 2:
+        return torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
     out = []
     for s in range(0, q.shape[0], chunk):
         d = torch.cdist(q[s:s + chunk].double(), x.double()).pow(2)
@@ -223,17 +340,19 @@ def unique_min_mask(q, x, margin=1e-5, chunk=8192):
     return torch.cat(out)
 
 
-def sdpa_mean_shift(X, bandwidth, iterations):
-    """K1's library yardstick, timed beside it and used nowhere in the port:
-    `iterations` steps of m <- normalize(softmax(2 inv2b2 m X^T) X), one
+def sdpa_mean_shift(X, bandwidth, iterations, m0=None):
+    """K1's and K5's library yardstick, timed beside them and used nowhere
+    in the port: `iterations` steps of m <- normalize(softmax(2 inv2b2 m
+    X^T) X) from m = X (or the queries m0), one
     F.scaled_dot_product_attention each, in X's dtype. The softmax's max
     shift cancels the kernel's constant factor exp(-2 inv2b2), so in f32
-    this is kernels.mean_shift_iterations_plain up to round-off."""
+    this is kernels.mean_shift_iterations_plain (and, for one step from m0,
+    kernels.mean_shift_step_plain) up to round-off."""
     import torch
     import torch.nn.functional as F
     scale = 1.0 / float(bandwidth) ** 2      # 2 inv2b2
     x = X[None, None]
-    m = x
+    m = x if m0 is None else m0[None, None]
     for _ in range(iterations):
         m = F.scaled_dot_product_attention(m, x, x, scale=scale)
         m = m / (torch.linalg.norm(m, dim=-1, keepdim=True) + 1e-12)
@@ -325,6 +444,22 @@ def main():
               "instructions")
 
     phase(wgmma_in_sass)
+
+    def k3_sass():
+        # K3's scan loop: 3 FFMA a (target, query) pair, so pairs = FFMA / 3
+        for r in (4, 8):
+            stats = sass_loop(kernels._lib_path("K3"),
+                              f"min_sqdist_kernelILi{r}E")
+            report[f"K3_sass_loop_r{r}"] = stats
+            if not check(stats is not None and stats[1] > 0,
+                         f"K3 (R = {r}) scan loop found in the SASS"):
+                continue
+            n_ins, ffma, lds = stats
+            print(f"  K3 R = {r} scan loop: {n_ins} instructions, {ffma} "
+                  f"FFMA, {lds} LDS: {3.0 * n_ins / ffma:.2f} instructions "
+                  "a pair", flush=True)
+
+    phase(k3_sass)
 
     # ---- shared inputs: stream a exactly as bench.py builds it
     n_batch, warmup, iters, n_pts = 4, 2, 8, 10000
@@ -535,17 +670,89 @@ def main():
         check(bool((i_k == i_p)[uniq].all()), f"K3 {tag}: indices equal on "
               f"{int(uniq.sum())}/{uniq.numel()} unique minima")
 
-        # K4 on K3's argmins against gather + index_add_
+        # K3 on exact ties: integer coordinates (every squared distance
+        # exact in f32, in any order of operations), every target twice,
+        # shuffled: d and the first index of the minimum equal everywhere
+        def grid_pts(*shape):
+            return torch.randint(-6, 7, shape, device=dev,
+                                 generator=gen_k).float()
+
+        def dup(x):
+            perm = torch.randperm(2 * x.shape[-2], device=dev,
+                                  generator=gen_k)
+            return torch.cat([x, x], -2)[..., perm, :].contiguous()
+
+        for b, n_t, m_t in ((1, 10000, 5000), (1, 204800, 1250),
+                            (36, 700, 800)):
+            qq, xx = grid_pts(b, n_t, 3), dup(grid_pts(b, m_t, 3))
+            d_k, i_k2 = kernels.min_sqdist_with_idx(qq, xx)
+            d_p, i_p2 = kernels.min_sqdist_with_idx_plain(qq, xx)
+            check(bool(torch.equal(d_k, d_p))
+                  and bool(torch.equal(i_k2, i_p2)),
+                  f"K3 exact ties {b} x ({n_t} vs {m_t} twice) (plan "
+                  f"{kernels.min_sqdist_plan(b, n_t, 2 * m_t, sms)}): d and "
+                  f"indices equal everywhere ({int((i_k2 != i_p2).sum())} "
+                  "indices differ)")
+
+        # K3 at ragged sizes, with masks, and a batch whose patch 2 has
+        # every target masked (1e30 and index 0 there)
+        ragged = [(1, 1, 1), (2, 63, 65), (3, 65, 1601), (2, 1601, 63),
+                  (1, 1601, 1601), (4, 700, 1600)]
+        for b, n_r, m_r in ragged:
+            qq = torch.randn(b, n_r, 3, device=dev, generator=gen_k)
+            xx = torch.randn(b, m_r, 3, device=dev, generator=gen_k)
+            mk = (torch.rand(b, m_r, device=dev, generator=gen_k)
+                  < 0.8).float()
+            mk[:, 0] = 1.0
+            if b == 4:
+                mk[2] = 0.0
+            d_k, i_k2 = kernels.min_sqdist_with_idx(qq, xx, mk)
+            d_p, i_p2 = kernels.min_sqdist_with_idx_plain(qq, xx, mk)
+            live = [p for p in range(b) if p != 2 or b != 4]
+            err = (d_k - d_p).abs()[live]
+            uniq = torch.stack([unique_min_mask(qq[p], xx[p][mk[p] > 0])
+                                for p in live])
+            check(bool((err <= 1e-6 + 1e-5 * d_p.abs()[live]).all())
+                  and bool((i_k2[live] == i_p2[live])[uniq].all()),
+                  f"K3 ragged {b} x ({n_r} vs {m_r}) masked (plan "
+                  f"{kernels.min_sqdist_plan(b, n_r, m_r, sms)}): max |d| "
+                  f"{float(err.max()):.3e} within 1e-6 + 1e-5 |ref|, indices "
+                  f"equal on {int(uniq.sum())}/{uniq.numel()} unique minima")
+            if b == 4:
+                check(bool((d_k[2] == kernels.MIN_SQDIST_BIG).all())
+                      and bool((i_k2[2] == 0).all()),
+                      "K3 fully masked patch: 1e30 and index 0")
+
+        # K4 on K3's argmins against gather + index_add_: dq bitwise, dx
+        # within 1e-5 + 1e-5 |ref| (shared-memory atomics, in no fixed
+        # order); at the training shape and at 40,000 targets a patch, more
+        # than one shared-memory chunk
+        xw = torch.rand(2, 40000, 3, device=dev, generator=gen_k)
+        qw = (xw[:, torch.randint(0, 40000, (30000,), device=dev,
+                                  generator=gen_k)]
+              + 0.003 * torch.randn(2, 30000, 3, device=dev,
+                                    generator=gen_k)).contiguous()
+        gw = torch.rand(2, 30000, device=dev, generator=gen_k)
+        k4_err = 0.0
+        for k4_tag, qq, xx, ii, gg in (
+                (tag, tq, tx, i_k, g_k4),
+                ("2 x (30,000 vs 40,000)", qw, xw,
+                 kernels.min_sqdist_with_idx(qw, xw)[1], gw)):
+            dq_k, dx_k = kernels.min_sqdist_bwd(qq, xx, ii, gg)
+            dq_p, dx_p = kernels.min_sqdist_bwd_plain(qq, xx, ii, gg)
+            err_x = (dx_k - dx_p).abs()
+            k4_err = max(k4_err, float((dq_k - dq_p).abs().max()),
+                         float(err_x.max()))
+            shared = int(ii.numel() - sum(int(torch.unique(r).numel())
+                                          for r in ii))
+            check(bool(torch.equal(dq_k, dq_p)),
+                  f"K4 {k4_tag}: dq bitwise equal to plain")
+            check(bool((err_x <= 1e-5 + 1e-5 * dx_p.abs()).all()),
+                  f"K4 {k4_tag}: dx max |d| {float(err_x.max()):.3e} within "
+                  f"1e-5 + 1e-5 |ref| ({shared} queries add into a target "
+                  "another query picked)")
+        report["K4_max_abs_err"] = k4_err
         dq_k, dx_k = kernels.min_sqdist_bwd(tq, tx, i_k, g_k4)
-        dq_p, dx_p = kernels.min_sqdist_bwd_plain(tq, tx, i_k, g_k4)
-        err_q, err_x = (dq_k - dq_p).abs(), (dx_k - dx_p).abs()
-        report["K4_max_abs_err"] = float(max(err_q.max(), err_x.max()))
-        check(bool((err_q <= 1e-5 + 1e-5 * dq_p.abs())[uniq].all()),
-              f"K4 dq: max |d| {float(err_q.max()):.3e} within 1e-5 + "
-              f"1e-5 |ref| on {int(uniq.sum())} unique minima")
-        check(bool((err_x <= 1e-5 + 1e-5 * dx_p.abs()).all()),
-              f"K4 dx: max |d| {float(err_x.max()):.3e} within 1e-5 + "
-              "1e-5 |ref| (float atomics)")
         qg, xg = tq.clone().requires_grad_(), tx.clone().requires_grad_()
         (kernels.MinSqdist.apply(qg, xg) * g_k4).sum().backward()
         check(bool(torch.equal(qg.grad, dq_k)) and float(qg.grad.abs().max())
@@ -844,38 +1051,44 @@ def main():
         samp = flat[torch.randint(0, flat.shape[0], (10000,), device=dev,
                                   generator=gen)].contiguous()
         calls = [(flat, p0[::4].contiguous()), (p0, samp), (samp, p0)]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": 0.0}
-        err = 0.0
+        tot = {k: 0.0 for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                "library_device_ms", "bound")}
+        per_call, err = [], 0.0
         for qq, xx in calls:
             nq, mx = qq.shape[0], xx.shape[0]
             b = 1000.0 * max(8 * nq * mx / PEAK_FP32,
                              ((nq + mx) * 3 * 4 + nq * 8) / HBM_BYTES_S)
-            km = cuda_ms(lambda: kernels.min_sqdist_with_idx(qq, xx), 10)
-            pm = cuda_ms(lambda: kernels.min_sqdist_with_idx_plain(qq, xx), 3)
-            lm = cuda_ms(lambda: torch.cdist(qq, xx).pow(2).min(1), 3)
+            t = time_k3(kernels, qq, xx, 10)
+            t["plain_ms"] = cuda_ms(
+                lambda: kernels.min_sqdist_with_idx_plain(qq, xx), 3)
+            t["bound"] = b
             err = max(err, float((kernels.min_sqdist_with_idx(qq, xx)[0]
                                   - kernels.min_sqdist_with_idx_plain(
                                       qq, xx)[0]).abs().max()))
-            print(f"[6 times] K3 {nq}x{mx}: kernel {km:.4f} ms, plain "
-                  f"{pm:.4f} ms, cdist {lm:.4f} ms, bound {b:.4f} ms "
-                  "(operations)", flush=True)
-            tot["ms"] += km
-            tot["plain_ms"] += pm
-            tot["library_ms"] += lm
-            tot["bound"] += b
+            print(f"[6 times] K3 {nq}x{mx} (plan "
+                  f"{kernels.min_sqdist_plan(1, nq, mx, sms)}): "
+                  + k3_line(t) + f", plain {t['plain_ms']:.4f} ms, bound "
+                  f"{b:.4f} ms (operations)", flush=True)
+            per_call.append({"shape": [nq, mx], **t})
+            for k in tot:
+                tot[k] += t[k]
+        print(f"  K3 summed over the shape's three calls: {tot['ms']:.4f} ms "
+              f"eager, {tot['device_ms']:.4f} ms device; cdist "
+              f"{tot['library_ms']:.4f} / {tot['library_device_ms']:.4f}; "
+              f"bound {tot['bound']:.4f} ms", flush=True)
         # K3 batched at the training shape: one launch per train step
         train_l = report.get("train", {}).get(
             "launches", {k: 0 for k in kernels.LAUNCHES})
         bq, nq, mx = tq.shape[0], tq.shape[1], tx.shape[1]
         t_bound = 1000.0 * max(8 * bq * nq * mx / PEAK_FP32,
                                bq * ((nq + mx) * 12 + nq * 8) / HBM_BYTES_S)
-        t_ms = cuda_ms(lambda: kernels.min_sqdist_with_idx(tq, tx), 50)
+        tt = time_k3(kernels, tq, tx, 50)
         t_plain = cuda_ms(lambda: kernels.min_sqdist_with_idx_plain(tq, tx),
                           10)
-        t_lib = cuda_ms(lambda: torch.cdist(tq, tx).pow(2).min(2), 10)
-        print(f"[6 times] K3 batched {bq}x({nq} vs {mx}): kernel "
-              f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, cdist {t_lib:.4f} ms, "
-              f"bound {t_bound:.5f} ms (operations)", flush=True)
+        print(f"[6 times] K3 batched {bq}x({nq} vs {mx}) (plan "
+              f"{kernels.min_sqdist_plan(bq, nq, mx, sms)}): " + k3_line(tt)
+              + f", plain {t_plain:.4f} ms, bound {t_bound:.5f} ms "
+              "(operations)", flush=True)
         entries.append({
             "name": "min_sqdist_idx", "route": "cuda",
             "source": "parsenet_tpu_torch/csrc/min_sqdist.cu",
@@ -885,10 +1098,15 @@ def main():
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound"], "bound_by": "operations",
             "library_ms": tot["library_ms"],
+            "device_ms": tot["device_ms"],
+            "library_device_ms": tot["library_device_ms"],
+            "calls": per_call,
             "launches_inference": launches["K3"],
             "launches_train": train_l["K3"],
-            "train_ms": t_ms, "train_plain_ms": t_plain,
-            "train_bound_ms": t_bound, "train_library_ms": t_lib})
+            "train_ms": tt["ms"], "train_device_ms": tt["device_ms"],
+            "train_plain_ms": t_plain, "train_bound_ms": t_bound,
+            "train_library_ms": tt["library_ms"],
+            "train_library_device_ms": tt["library_device_ms"]})
 
         # K4 at the training shape, on K3's argmins
         idx = kernels.min_sqdist_with_idx(tq, tx)[1]
@@ -900,15 +1118,15 @@ def main():
         k4_bytes = bq * nq * (12 + 4 + 4 + 12) + n_rows * 12 + bq * mx * 12
         k4_bound = 1000.0 * max(bq * nq * 12 / PEAK_FP32,
                                 k4_bytes / HBM_BYTES_S)
-        dq_p, dx_p = kernels.min_sqdist_bwd_plain(tq, tx, idx, g_k4)
-        dx_lib = torch.zeros((bq * mx, 3), device=dev)
-        k4_ms = cuda_ms(lambda: kernels.min_sqdist_bwd(tq, tx, idx, g_k4), 50)
+        k4 = time_k4(kernels, tq, tx, idx, g_k4, 50)
         k4_plain = cuda_ms(lambda: kernels.min_sqdist_bwd_plain(
             tq, tx, idx, g_k4), 20)
-        k4_lib = cuda_ms(lambda: dx_lib.index_add_(
-            0, rows, dq_p.reshape(-1, 3), alpha=-1.0), 20)
-        print(f"[6 times] K4 {bq}x({nq} vs {mx}): kernel {k4_ms:.4f} ms, "
-              f"plain {k4_plain:.4f} ms, index_add_ {k4_lib:.4f} ms, bound "
+        print(f"[6 times] K4 {bq}x({nq} vs {mx}): kernel {k4['ms']:.4f} ms "
+              f"eager as MinSqdist calls it ({k4['checked_ms']:.4f} through "
+              f"min_sqdist_bwd's checks), {k4['device_ms']:.4f} ms device; "
+              f"plain {k4_plain:.4f} "
+              f"ms; index_add_ {k4['library_ms']:.4f} ms eager, "
+              f"{k4['library_device_ms']:.4f} ms device; bound "
               f"{k4_bound:.5f} ms (bytes: {k4_bytes} bytes, {n_rows} "
               "distinct argmin rows)", flush=True)
         entries.append({
@@ -917,18 +1135,22 @@ def main():
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:463",
             "launches": train_l["K4"],
             "max_abs_err": report.get("K4_max_abs_err"),
-            "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
-            "bound_by": "bytes", "library_ms": k4_lib})
+            "ms": k4["ms"], "plain_ms": k4_plain, "bound_ms": k4_bound,
+            "bound_by": "bytes", "library_ms": k4["library_ms"],
+            "device_ms": k4["device_ms"], "checked_ms": k4["checked_ms"],
+            "library_device_ms": k4["library_device_ms"]})
 
-        # K5: one step at 10,000 x 128 (no program path runs it)
+        # K5: one step at 10,000 x 128 (no program path runs it); its
+        # yardstick is one f32 SDPA step of the same queries and keys
         k5_bound = 1000.0 * max(4 * n * n * d / PEAK_FP32,
                                 3 * n * d * 4 / HBM_BYTES_S)
         k5_ms = cuda_ms(lambda: kernels.mean_shift_step(m5, embn, inv2b2), 5)
         k5_plain = cuda_ms(lambda: kernels.mean_shift_step_plain(
             m5, embn, inv2b2), 5)
+        k5_lib = cuda_ms(lambda: sdpa_mean_shift(embn, bw_f, 1, m5), 5)
         print(f"[6 times] K5 10000x128 one step: kernel {k5_ms:.3f} ms, "
-              f"plain {k5_plain:.3f} ms, bound {k5_bound:.3f} ms "
-              "(operations)", flush=True)
+              f"plain {k5_plain:.3f} ms, SDPA step {k5_lib:.3f} ms, bound "
+              f"{k5_bound:.3f} ms (operations)", flush=True)
         entries.append({
             "name": "ms_step", "route": "cuda",
             "source": "parsenet_tpu_torch/csrc/ms_iterations.cu",
@@ -936,7 +1158,7 @@ def main():
             "launches": launches["K5"] + train_l["K5"],
             "max_abs_err": report.get("K5_max_abs_err"),
             "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
-            "bound_by": "operations", "library_ms": None})
+            "bound_by": "operations", "library_ms": k5_lib})
 
     phase(kernel_times)
     report["kernels"] = entries

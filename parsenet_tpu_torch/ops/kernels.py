@@ -16,7 +16,9 @@ library under `csrc/build/` (one nvcc per source, all started together; a
 library whose source hash is already built is reused) and loads it with
 ctypes. A wrapper given CUDA tensors launches its kernel on the current
 stream or raises; only CPU tensors go to the plain PyTorch version beside
-it. `LAUNCHES` counts kernel launches, one per wrapper call that launches.
+it. `LAUNCHES` counts kernel launches, one per wrapper call that launches
+(K3's entry adds its merge pass, when its plan splits the targets, as part
+of the same launch).
 
 K1, K2, K5 and the raw K3 have no backward: given an input that requires
 grad while grad mode is on they raise, on every device, instead of
@@ -53,7 +55,8 @@ ENTRIES = {
     "K1tc": ("K1tc", "ms_iterations_tc",
              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "K2": ("K2", "auction_assign", [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
-    "K3": ("K3", "min_sqdist_idx", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "K3": ("K3", "min_sqdist_idx",
+           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "K4": ("K4", "min_sqdist_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "K5": ("K1", "ms_step", [_P, _P, _P, _P, _I, _I, _P]),
 }
@@ -61,6 +64,7 @@ ENTRIES = {
 LAUNCHES = {name: 0 for name in ENTRIES}
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}  # kernel -> its bound C function
 
 
 def reset_launches() -> None:
@@ -109,20 +113,20 @@ def build_kernels() -> float:
     for name in SOURCES:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
-    for lib, fn_name, argtypes in ENTRIES.values():
+    for name, (lib, fn_name, argtypes) in ENTRIES.items():
         fn = getattr(_LIBS[lib], fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return time.perf_counter() - t0
 
 
 def _launch(name: str, *args) -> None:
-    lib, fn_name, _ = ENTRIES[name]
-    if lib not in _LIBS:
+    if name not in _FNS:
         build_kernels()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(_LIBS[lib], fn_name)(*args, stream)
+    rc = _FNS[name](*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
+        lib, fn_name, _ = ENTRIES[name]
         raise RuntimeError(f"kernels: {SOURCES[lib]}:{fn_name} launch failed "
                            f"with cudaError {rc}")
     LAUNCHES[name] += 1
@@ -435,12 +439,63 @@ def auction_assign(benefit: torch.Tensor, eps0: float, esc_every: int,
 
 MIN_SQDIST_BIG = 1e30  # masked targets (the TPU kernel's constant)
 PLAIN_QUERY_CHUNK = 8192  # query rows per [chunk, M] block of the plain version
+# K3's launch plan (`min_sqdist_plan`); the three model constants were read
+# off split sweeps at the main-path shapes on an H100 (PERF.md §6)
+MSQ_MAX_THREADS = 256  # the kernel's largest block
+MSQ_BLOCK_COST = 64    # a block's fixed work, in targets scanned
+MSQ_SAT_WARPS = 8      # warps an SM needs to run the scan at full rate
+MSQ_MAX_BLOCKS_PER_SM = 16  # the most blocks an SM's share the plan weighs
+MSQ_MIN_CHUNK = 128    # fewest targets a split is given
+_SMS: dict[int, int] = {}  # CUDA device index -> SM count
 
 
 def _penalty(x: torch.Tensor, x_mask: Optional[torch.Tensor]) -> torch.Tensor:
     if x_mask is None:
         return torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     return torch.where(x_mask > 0, 0.0, MIN_SQDIST_BIG).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=4096)
+def min_sqdist_plan(b: int, n: int, m: int, sms: int) -> tuple[int, int, int]:
+    """How K3 spreads B patches of N queries against M targets over a card
+    with `sms` SMs: (r, threads, splits). Each thread keeps r queries (8 from
+    N = 2,048 up, else 4), a block has `threads` (the fewest warps that hold
+    a patch's queries, at most 256) and covers threads * r queries of one
+    patch; each patch's targets are cut into `splits` chunks of
+    ceil(M / splits), so the grid is ceil(N / (threads r)) x splits x B
+    blocks, no chunk is empty and none is cut below MSQ_MIN_CHUNK targets
+    (a second pass merges the splits; small shapes are not worth one).
+
+    splits minimises a model of the time: the busiest SM runs k =
+    ceil(blocks / sms) blocks, each scanning its chunk plus
+    MSQ_BLOCK_COST targets' worth of fixed work, at full rate once it holds
+    MSQ_SAT_WARPS warps and proportionally slower below. For each k the
+    largest splits with that k is the candidate (smaller chunks at the same
+    k); more splits shorten the chunks, fewer cut the fixed work."""
+    def ceil(a, c):
+        return -(-a // c)
+
+    r = 8 if n >= 2048 else 4
+    threads = min(MSQ_MAX_THREADS, 32 * ceil(ceil(n, r), 32))
+    warps = threads // 32
+    base = b * ceil(n, threads * r)
+    best = None
+    for k in range(1, MSQ_MAX_BLOCKS_PER_SM + 1):
+        s = min(max(1, k * sms // base), ceil(m, MSQ_MIN_CHUNK))
+        per_sm = ceil(base * s, sms)
+        cost = (per_sm * (ceil(m, s) + MSQ_BLOCK_COST)
+                / min(1.0, per_sm * warps / MSQ_SAT_WARPS))
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return r, threads, ceil(m, ceil(m, best[1]))
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
 
 
 def _as_batch(q, x, x_mask):
@@ -478,7 +533,8 @@ def min_sqdist_with_idx(q: torch.Tensor, x: torch.Tensor,
     """K3. q [N, 3], x [M, 3], optional x_mask [M] (> 0 keeps a target) ->
     (min squared distance [N] f32, argmin [N] int32 clipped to [0, M-1]).
     Batched: q [B, N, 3], x [B, M, 3], x_mask [B, M] -> [B, N] each, one
-    launch. No backward: see `MinSqdist`."""
+    launch (and a merging one where `min_sqdist_plan` splits the targets).
+    No backward: see `MinSqdist`."""
     tensors = (q, x) if x_mask is None else (q, x, x_mask)
     if not _on_cuda("min_sqdist_with_idx", *tensors):
         return min_sqdist_with_idx_plain(q, x, x_mask)
@@ -493,11 +549,17 @@ def min_sqdist_with_idx(q: torch.Tensor, x: torch.Tensor,
     if mask3 is not None and mask3.shape != (b, m):
         raise ValueError(f"min_sqdist_with_idx: mask {tuple(x_mask.shape)} "
                          f"does not match x {tuple(x.shape)}")
-    pen = _penalty(x3, mask3).contiguous()
+    if mask3 is not None:
+        mask3 = mask3.to(torch.float32).contiguous()
+    r, threads, splits = min_sqdist_plan(b, n, m, _sm_count(q.device))
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    _launch("K3", q3.data_ptr(), x3.data_ptr(), pen.data_ptr(),
-            out.data_ptr(), idx.data_ptr(), b, n, m)
+    ws = (torch.empty((2 * splits * b * n,), dtype=torch.int32,
+                      device=q.device) if splits > 1 else None)
+    _launch("K3", q3.data_ptr(), x3.data_ptr(),
+            0 if mask3 is None else mask3.data_ptr(), out.data_ptr(),
+            idx.data_ptr(), 0 if ws is None else ws.data_ptr(), b, n, m, r,
+            threads, splits)
     return (out[0], idx[0]) if squeeze else (out, idx)
 
 
@@ -522,8 +584,9 @@ def min_sqdist_bwd(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
                    g: torch.Tensor):
     """K4. The backward of `MinSqdist` for q [B, N, 3], x [B, M, 3], the
     forward's argmin idx [B, N] int32 and the incoming gradient g [B, N] f32
-    -> (dq [B, N, 3], dx [B, M, 3]). dx sums with float atomics on the
-    card, so its last bits depend on the order of the adds."""
+    -> (dq [B, N, 3], dx [B, M, 3]), one launch. dx sums with shared-memory
+    atomics on the card, so its last bits depend on the order of the adds;
+    dq is bitwise the plain version's."""
     if not _on_cuda("min_sqdist_bwd", q, x, idx, g):
         return min_sqdist_bwd_plain(q, x, idx, g)
     for label, t, dtype, ndim in (("q", q, torch.float32, 3),
@@ -537,10 +600,20 @@ def min_sqdist_bwd(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"min_sqdist_bwd: shapes q {tuple(q.shape)}, x "
                          f"{tuple(x.shape)}, idx {tuple(idx.shape)}, g "
                          f"{tuple(g.shape)}")
+    return _min_sqdist_bwd(q, x, idx, g)
+
+
+def _min_sqdist_bwd(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
+                    g: torch.Tensor):
+    """K4 without the checks, for `MinSqdist.backward`, whose forward has
+    checked q, x and the argmin: a CUDA q launches the kernel, a CPU q
+    takes the plain version."""
+    if q.device.type != "cuda":
+        return min_sqdist_bwd_plain(q, x, idx, g)
     dq = torch.empty_like(q)
     dx = torch.empty_like(x)
     _launch("K4", q.data_ptr(), x.data_ptr(), idx.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dx.data_ptr(), b, n, m)
+            dq.data_ptr(), dx.data_ptr(), q.shape[0], q.shape[1], x.shape[1])
     return dq, dx
 
 
@@ -548,10 +621,15 @@ class MinSqdist(torch.autograd.Function):
     """Differentiable min squared distance, min_sqdist_fused's counterpart:
     the forward is K3 (saving q, x and the argmin), the backward K4, the
     subgradient through the argmin. q [B, N, 3], x [B, M, 3], optional
-    x_mask [B, M] (not differentiated) -> [B, N]."""
+    x_mask [B, M] (not differentiated) -> [B, N]. On the card the forward's
+    checks (contiguous f32 [B, N, 3] and [B, M, 3]) stand for the
+    backward's: it launches K4 through `_min_sqdist_bwd`."""
 
     @staticmethod
     def forward(ctx, q, x, x_mask=None):
+        if q.dim() != 3:
+            raise ValueError(f"MinSqdist: expected q [B, N, 3], got "
+                             f"{tuple(q.shape)}")
         d, idx = min_sqdist_with_idx(q, x, x_mask)
         ctx.save_for_backward(q, x, idx)
         return d
@@ -559,6 +637,6 @@ class MinSqdist(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, x, idx = ctx.saved_tensors
-        dq, dx = min_sqdist_bwd(q, x, idx, g.contiguous())
+        dq, dx = _min_sqdist_bwd(q, x, idx, g.contiguous())
         return (dq if ctx.needs_input_grad[0] else None,
                 dx if ctx.needs_input_grad[1] else None, None)
