@@ -9,20 +9,25 @@ Phases, one line each (plus detail lines):
      power limit;
   2. build: nvcc of every kernel source under parsenet_tpu_torch/csrc;
      the ptxas lines (registers, spills, warnings), the count of HGMMA
-     (wgmma) instructions in the SASS of the tensor-core K1, which must be
-     > 0, and the instructions of K3's scan loop for each R, per (target,
-     query) pair;
+     (wgmma) instructions in the SASS of both tensor-core K1s (bf16 and
+     3xTF32), which must be > 0, and the instructions of K3's scan loop
+     for each R, per (target, query) pair;
   3. kernel vs plain on the card at main-path shapes:
-     K1 mean-shift at 10,000 x 128, 50 iterations, the bandwidth of a
-        stream-a embedding: f32 (FFMA kernel) max |d| <= 1e-3 and the same
-        NMS clustering (cluster numbering aside); bf16 (tensor-core kernel)
-        on ms_plan's grid (every SM, partial sums exchanged) and on one
-        block per 128 rows (no exchange): max |d| <= 1e-4 after 1
-        iteration and <= 1e-2 after 50, NMS co-membership >= 0.99; the
+     K1 f32 (3xTF32 tensor-core kernel) at the 10,000 x 128 stream-a
+        embedding and its bandwidth, on ms_plan's grid (every SM, partial
+        sums exchanged) and on one block per 128 rows (no exchange): max
+        |d| from the plain f32 version <= 1e-5 after 1 iteration and <= 1e-3
+        after 50, the same NMS clustering (cluster numbering aside); the
         same max |d| limits on both grids for clustered rows at N = 100,
-        1,000 (D = 64) and 4,999 (f32 there too: <= 1e-3), and after 50
-        iterations on each of 8 stream-a embeddings at its own bandwidth
-        (co-membership >= 0.99, the minimum printed); 0 iterations give X
+        1,000 (D = 64) and 4,999; after 50 iterations on each of 8 stream-a
+        embeddings at its own bandwidth, NMS co-membership >= 0.999, or,
+        where plain f32 with the keys reordered already moves NMS more,
+        >= the reordered version's;
+     K1 bf16 (tensor-core kernel) on both grids: max |d| from the plain
+        bf16 version <= 1e-4 after 1 iteration and <= 1e-2 after 50, NMS
+        co-membership >= 0.99; the same limits for the clustered rows and
+        the 8 stream-a embeddings (co-membership >= 0.99, the minimum
+        printed, beside plain bf16 against plain f32); 0 iterations give X
         back in both modes without a launch;
      K2 auction on SIOU-structured and random 50 x 50 costs: identical
         assignments, every completed one a permutation;
@@ -36,18 +41,26 @@ Phases, one line each (plus detail lines):
         batch with one fully masked patch, 1e30 and index 0 there;
      K4 min-sqdist backward, on K3's argmins, for a random incoming
         gradient, at the training shape and at 2 x (30,000 vs 40,000) (more
-        than one shared-memory chunk a patch): dq bitwise equal to gather +
-        index_add_, dx within 1e-5 + 1e-5 |ref| (shared-memory atomics, in
-        no fixed order); and MinSqdist's gradients on the card are K4's,
-        not zero;
-     K5 one mean-shift step at 10,000 x 128, queries a perturbed copy of
-        the stream-a embedding, keys the embedding: max |d| <= 1e-5;
+        than one shared-memory chunk a patch, query entries in device
+        memory): dq and dx bitwise equal to the plain version (dx summed in
+        ascending query order, as the kernel sums it), and the same bits in
+        a second call; MinSqdist's gradients on the card are K4's, not
+        zero;
+     K5 one mean-shift step (the 3xTF32 kernel, one iteration, queries
+        apart from keys) at 10,000 x 128, queries a perturbed copy of the
+        stream-a embedding, keys the embedding, and at 300 queries vs 1,000
+        keys and 1,000 vs 300 (D = 64), on both grids: max |d| <= 1e-5;
   4. slice: bench.py's stream "a" (seed 7, 2 warm-up + 8 timed batches of 4,
      10k points, bf16 mean-shift, spline_fit=None, shipped params) through
      parsenet_tpu_torch.eval.pipeline.run_batch; quality against the
      configs/quality_floors.json "bench" floors, shapes/hour, per-stage ms
-     from CUDA events, and launches > 0 for the tensor-core K1, K2 and
-     K3, none for the FFMA K1 (the slice runs bf16);
+     from CUDA events, and launches > 0 for the bf16 K1, K2 and K3, none
+     for the f32 K1;
+  4b. the library's default f32 mean-shift: the first timed batch of
+     stream a through run_batch(..., ms_bf16=False) and, beside it, with
+     ms_bf16=True (the second of two runs each, one generator seed): ms a
+     shape and the quality metrics of both; the f32 run must launch the
+     3xTF32 K1 and not the bf16 one;
   5. train: SplineNet at full width (grid 20, k 10, 36 patches of 700
      points, 40 x 40 surface samples, anisotropic, loss_weight 0.9, Adam
      at lr 1e-3):
@@ -65,18 +78,21 @@ Phases, one line each (plus detail lines):
          falling loss;
      (d) each run's validation: eval_step's two-sided sqrt chamfer on 2
          batches;
+     (b)-(d) run twice each from the same seed and data: the losses of
+         every step and the validation chamfer must be equal;
   6. kernel times at main-path shapes beside the plain version, the bound
      and the library yardstick where PyTorch computes the same
      (sdpa_mean_shift for K1 and, one step, K5, torch.cdist for K3,
      index_add_ for K4's scatter); for K1 also the achieved TFLOP/s, the
-     share of the bound, the floor the exponentials set on the MUFU units,
-     the tensor-core launch alone, without the wrapper's tiling and
-     allocations, and its two grids at 10,000 and 4,999 rows. Times are
-     CUDA events around back-to-back eager calls (`cuda_ms`, what the
-     program sees); K3 (each of a shape's three inference calls, and the
-     training call), K4 and their yardsticks also get a device time
-     (`graph_ms`: the calls captured in a CUDA graph, events around its
-     replays, so the host's pace is out of it).
+     share of the bound (f32: the smaller of the 3xTF32 tensor-core and
+     the f32 FMA floors), the floor the exponentials set on the MUFU
+     units, the bf16 launch alone, without the wrapper's tiling and
+     allocations, and both kernels' two grids at 10,000 and 4,999 rows.
+     Times are CUDA events around back-to-back eager calls (`cuda_ms`,
+     what the program sees); K2, K3 (each of a shape's three inference
+     calls, and the training call), K4 and their yardsticks also get a
+     device time (`graph_ms`: the calls captured in a CUDA graph, events
+     around its replays, so the host's pace is out of it).
 The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Any failed check exits non-zero without the
 ok line; without a CUDA device it exits 1 at once.
@@ -95,6 +111,7 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 HBM_BYTES_S = 3.35e12
 # ex2 per second on the MUFU units: 132 SMs x 16 a clock (compute
 # capability 9.0) at 1.83 GHz, the clock at which 132 x 4,096 bf16 FLOP a
@@ -146,6 +163,17 @@ GRAD_RTOL, GRAD_ATOL = 0.1, 1e-8
 # differ; over 50 iterations those differences steer rows that sit between
 # modes a little apart.
 K1TC_TOL_1, K1TC_TOL_50 = 1e-4, 1e-2
+# The 3xTF32 K1 (and K5) against the plain f32 version, max |d|: the
+# operands are split to about 2^-21 relative and accumulated in f32, so one
+# iteration differs by the order of the sums, the dropped lo.lo term and
+# ex2.approx (CPU emulation against the Pallas kernel: 2.1e-07 at N =
+# 2,048); 50 iterations let rows between modes drift a little apart. NMS
+# co-membership on 8 stream-a embeddings must reach K1F_AGREE, or, on an
+# embedding where plain f32 with its keys in another order (the same sums
+# rounded in another order) already moves NMS more than that, reach the
+# reordered version's co-membership: NMS takes argmaxes over rows that
+# converged to one mode, which last-bit differences decide.
+K1F_TOL_1, K1F_TOL_50, K1F_AGREE = 1e-5, 1e-3, 0.999
 
 FAILURES = []
 
@@ -438,10 +466,12 @@ def main():
                 print(f"  {kname} ptxas: {line.strip()}")
 
     def wgmma_in_sass():
-        hgmma = sass_count(kernels._lib_path("K1tc"), "HGMMA")
-        report["K1tc_hgmma"] = hgmma
-        check(hgmma > 0, f"K1tc SASS holds {hgmma} HGMMA (wgmma) "
-              "instructions")
+        for kname, src in (("K1tc", "ms_iterations_tc.cu"),
+                           ("K1", "ms_iterations_tf32.cu")):
+            hgmma = sass_count(kernels._lib_path(kname), "HGMMA")
+            report[f"{kname}_hgmma"] = hgmma
+            check(hgmma > 0, f"{src} SASS holds {hgmma} HGMMA (wgmma) "
+                  "instructions")
 
     phase(wgmma_in_sass)
 
@@ -507,17 +537,45 @@ def main():
         print(f"[3 kernel vs plain] K1 bandwidth {float(bw):.6f}; K1tc "
               f"(grid, slots) {kernels.ms_plan(embn.shape[0], sms)}",
               flush=True)
-        # K1 f32 (FFMA kernel)
-        k_out = kernels.mean_shift_iterations(embn, bw, 50)
-        p_out = kernels.mean_shift_iterations_plain(embn, bw, 50)
-        k_lab = ms.nms(k_out, embn, bw)[1].cpu().numpy()
-        p_lab = ms.nms(p_out, embn, bw)[1].cpu().numpy()
-        err = float((k_out - p_out).abs().max())
-        report["K1_f32_max_abs_err"] = err
-        check(err <= 1e-3, f"K1 f32 max |d| {err:.3e} <= 1e-3")
-        check(np.array_equal(canonical(k_lab), canonical(p_lab)),
-              f"K1 f32 NMS clustering identical ({k_lab.max() + 1} "
-              "clusters)")
+        # K1 f32 (3xTF32 tensor-core kernel) against the plain f32
+        # version, on ms_plan's grid (every SM, partial sums exchanged) and
+        # on one block per 128-row block (no exchange): max |d| after 1
+        # iteration <= K1F_TOL_1, after 50 <= K1F_TOL_50; the same NMS
+        # clustering (cluster numbering aside) on shape 0
+        def k1f(x, b, it, one_block):
+            if not one_block:
+                return kernels.mean_shift_iterations(x, b, it)
+            return kernels._ms_iterations_tf32(
+                x, x, kernels._inv2b2(b, dev), it,
+                -(-x.shape[0] // kernels.MS_BLOCK_ROWS))[:, :x.shape[1]]
+
+        def k1f_checks(tag, x, b, one_block, its=(1, 50)):
+            grid = "one block per 128 rows" if one_block else "ms_plan grid"
+            errs = {}
+            for it in its:
+                k_out = k1f(x, b, it, one_block)
+                p_out = kernels.mean_shift_iterations_plain(x, b, it)
+                errs[it] = float((k_out - p_out).abs().max())
+                tol = K1F_TOL_1 if it == 1 else K1F_TOL_50
+                check(errs[it] <= tol, f"K1 f32 {tag}, {grid}, {it} it: "
+                      f"max |d| {errs[it]:.3e} <= {tol:g}")
+            return errs, k_out, p_out
+
+        print(f"  K1 f32 (grid, slots) "
+              f"{kernels.ms_plan(embn.shape[0], sms, kernels.MS_TF32_TILE)}",
+              flush=True)
+        x_tag = f"stream a {embn.shape[0]} x {embn.shape[1]}"
+        for one_block in (False, True):
+            errs, k_out, p_out = k1f_checks(x_tag, embn, bw, one_block)
+            k_lab = ms.nms(k_out, embn, bw)[1].cpu().numpy()
+            p_lab = ms.nms(p_out, embn, bw)[1].cpu().numpy()
+            key = "K1_f32_one_block" if one_block else "K1_f32"
+            report[f"{key}_max_abs_err"] = errs[50]
+            report[f"{key}_max_abs_err_1"] = errs[1]
+            check(np.array_equal(canonical(k_lab), canonical(p_lab)),
+                  f"K1 f32 {x_tag}, "
+                  f"{'one block per 128 rows' if one_block else 'ms_plan grid'}"
+                  f": NMS clustering identical ({k_lab.max() + 1} clusters)")
         for bf16 in (False, True):   # no iteration: X back, no launch
             before = dict(kernels.LAUNCHES)
             same = bool(torch.equal(kernels.mean_shift_iterations(
@@ -566,22 +624,22 @@ def main():
                   f"{k_lab.max() + 1}/{p_lab.max() + 1})")
 
         # ragged N, D < 128, a single row block: clustered unit rows at
-        # bandwidth 0.2, both grids; the f32 kernel at the same shapes
+        # bandwidth 0.2, both grids, both tensor-core kernels
         rng_c = np.random.RandomState(0)
         for n_c, d_c in ((100, 128), (1000, 64), (4999, 128)):
             xc = torch.from_numpy(clustered(rng_c, n_c, d_c)).to(dev)
             for one_block in (False, True):
                 k1tc_checks(f"clustered {n_c} x {d_c}", xc, 0.2, one_block)
-            err = float((kernels.mean_shift_iterations(xc, 0.2, 50)
-                         - kernels.mean_shift_iterations_plain(xc, 0.2, 50))
-                        .abs().max())
-            check(err <= 1e-3, f"K1 f32 clustered {n_c} x {d_c}, 50 it: "
-                  f"max |d| {err:.3e} <= 1e-3")
+                k1f_checks(f"clustered {n_c} x {d_c}", xc, 0.2, one_block)
 
-        # the tensor-core K1 on 8 stream-a embeddings at their own bandwidth
+        # both tensor-core K1s on 8 stream-a embeddings at their own
+        # bandwidth
         gen_e = torch.Generator(device=dev)   # leaves `gen` to the slice
         gen_e.manual_seed(3)
+        gen_p = torch.Generator(device=dev)   # the key orders
+        gen_p.manual_seed(11)
         agrees, errs, bf16_vs_f32 = [], [], []
+        f_agrees, f_errs, f_floor = [], [], []
         for i in range(8):
             with torch.no_grad():
                 e = model(torch.from_numpy(np.concatenate(
@@ -598,11 +656,34 @@ def main():
             agrees.append(co_membership(ms.nms(k_out, e, b)[1].cpu().numpy(),
                                         p_lab))
             # the scale of NMS's own sensitivity: plain bf16 against f32
-            f32_lab = ms.nms(kernels.mean_shift_iterations_plain(e, b, 50), e,
-                             b)[1].cpu().numpy()
+            err, k_out, p_out = k1f_checks(f"stream-a embedding {i}", e, b,
+                                           False, its=(50,))
+            f32_lab = ms.nms(p_out, e, b)[1].cpu().numpy()
             bf16_vs_f32.append(co_membership(p_lab, f32_lab))
+            # the 3xTF32 K1 against plain f32, beside NMS's own sensitivity
+            # at f32: plain f32 with the keys in another order (the same
+            # sums, rounded in another order) against plain f32
+            f_errs.append(err[50])
+            f_agrees.append(co_membership(
+                ms.nms(k_out, e, b)[1].cpu().numpy(), f32_lab))
+            perm = torch.randperm(e.shape[0], device=dev, generator=gen_p)
+            reordered = kernels.mean_shift_iterations_plain(
+                e[perm].contiguous(), b, 50)[torch.argsort(perm)]
+            f_floor.append(co_membership(
+                ms.nms(reordered, e, b)[1].cpu().numpy(), f32_lab))
         report["K1tc_co_membership_8"] = agrees
         report["K1tc_max_abs_err_8"] = errs
+        report["K1_f32_co_membership_8"] = f_agrees
+        report["K1_f32_max_abs_err_8"] = f_errs
+        report["plain_f32_reordered_co_membership_8"] = f_floor
+        print("  (plain f32 with the keys reordered against plain f32, "
+              "co-membership: " + ", ".join(f"{v:.6f}" for v in f_floor)
+              + ")")
+        check(all(a >= min(K1F_AGREE, f) for a, f in zip(f_agrees, f_floor)),
+              f"K1 f32 co-membership on 8 stream-a embeddings >= "
+              f"{K1F_AGREE}, or where NMS itself moves more than that at "
+              "f32, >= the reordered plain version's (each: " + ", ".join(
+                  f"{v:.6f}" for v in f_agrees) + ")")
         report["plain_bf16_vs_f32_co_membership_8"] = bf16_vs_f32
         print("  (plain bf16 against plain f32, co-membership: "
               + ", ".join(f"{v:.6f}" for v in bf16_vs_f32) + ")")
@@ -723,50 +804,72 @@ def main():
                       and bool((i_k2[2] == 0).all()),
                       "K3 fully masked patch: 1e30 and index 0")
 
-        # K4 on K3's argmins against gather + index_add_: dq bitwise, dx
-        # within 1e-5 + 1e-5 |ref| (shared-memory atomics, in no fixed
-        # order); at the training shape and at 40,000 targets a patch, more
-        # than one shared-memory chunk
+        # K4 on K3's argmins against the plain version (gather, and the
+        # scatter of -dq in ascending query order): dq and dx bitwise, and
+        # dx the same in a second call; at the training shape, with every
+        # query on one of 8 targets a patch (long chains), and at 40,000
+        # targets a patch, more than one shared-memory chunk, with the
+        # query entries in device memory
         xw = torch.rand(2, 40000, 3, device=dev, generator=gen_k)
         qw = (xw[:, torch.randint(0, 40000, (30000,), device=dev,
                                   generator=gen_k)]
               + 0.003 * torch.randn(2, 30000, 3, device=dev,
                                     generator=gen_k)).contiguous()
         gw = torch.rand(2, 30000, device=dev, generator=gen_k)
+        few = torch.randint(0, 8, tq.shape[:2], device=dev, generator=gen_k)
         k4_err = 0.0
         for k4_tag, qq, xx, ii, gg in (
                 (tag, tq, tx, i_k, g_k4),
+                (f"{tag}, every query on one of 8 targets", tq, tx,
+                 few.to(torch.int32), g_k4),
                 ("2 x (30,000 vs 40,000)", qw, xw,
                  kernels.min_sqdist_with_idx(qw, xw)[1], gw)):
             dq_k, dx_k = kernels.min_sqdist_bwd(qq, xx, ii, gg)
             dq_p, dx_p = kernels.min_sqdist_bwd_plain(qq, xx, ii, gg)
-            err_x = (dx_k - dx_p).abs()
             k4_err = max(k4_err, float((dq_k - dq_p).abs().max()),
-                         float(err_x.max()))
+                         float((dx_k - dx_p).abs().max()))
             shared = int(ii.numel() - sum(int(torch.unique(r).numel())
                                           for r in ii))
             check(bool(torch.equal(dq_k, dq_p)),
                   f"K4 {k4_tag}: dq bitwise equal to plain")
-            check(bool((err_x <= 1e-5 + 1e-5 * dx_p.abs()).all()),
-                  f"K4 {k4_tag}: dx max |d| {float(err_x.max()):.3e} within "
-                  f"1e-5 + 1e-5 |ref| ({shared} queries add into a target "
-                  "another query picked)")
+            check(bool(torch.equal(dx_k, dx_p)) and bool(torch.equal(
+                dx_k, kernels.min_sqdist_bwd(qq, xx, ii, gg)[1])),
+                  f"K4 {k4_tag}: dx bitwise equal to plain and in a second "
+                  f"call (max |d| {float((dx_k - dx_p).abs().max()):.3e}; "
+                  f"{shared} queries add into a target another query "
+                  "picked)")
         report["K4_max_abs_err"] = k4_err
         dq_k, dx_k = kernels.min_sqdist_bwd(tq, tx, i_k, g_k4)
         qg, xg = tq.clone().requires_grad_(), tx.clone().requires_grad_()
         (kernels.MinSqdist.apply(qg, xg) * g_k4).sum().backward()
         check(bool(torch.equal(qg.grad, dq_k)) and float(qg.grad.abs().max())
-              > 0 and bool(torch.allclose(xg.grad, dx_k, rtol=1e-5,
-                                           atol=1e-5)),
+              > 0 and bool(torch.equal(xg.grad, dx_k)),
               "MinSqdist gradients on the card are K4's and nonzero")
 
-        # K5: one step of perturbed queries against the embedding
-        err = float((kernels.mean_shift_step(m5, embn, inv2b2)
-                     - kernels.mean_shift_step_plain(m5, embn, inv2b2))
-                    .abs().max())
-        report["K5_max_abs_err"] = err
-        check(err <= 1e-5, f"K5 10,000 x 128 step, m != x: max |d| "
-              f"{err:.3e} <= 1e-5")
+        # K5: one step of perturbed queries against the embedding, on
+        # ms_plan's grid and on one block per 128 query rows, and of
+        # ragged queries against more or fewer keys
+        k5_cases = [("10,000 x 128, m != x", m5, embn)]
+        rng_5 = np.random.RandomState(5)
+        for nq, nk in ((300, 1000), (1000, 300)):
+            k5_cases.append((f"{nq} queries vs {nk} keys x 64",
+                             torch.from_numpy(clustered(rng_5, nq, 64)).to(dev),
+                             torch.from_numpy(clustered(rng_5, nk, 64)).to(dev)))
+        k5_err = 0.0
+        for tag, mq, xk in k5_cases:
+            inv = 1.0 / (2.0 * 0.2 * 0.2) if mq is not m5 else inv2b2
+            p_out = kernels.mean_shift_step_plain(mq, xk, inv)
+            one = kernels._ms_iterations_tf32(
+                mq, xk, torch.tensor([float(inv)], device=dev), 1,
+                -(-mq.shape[0] // kernels.MS_BLOCK_ROWS), "K5")
+            for grid, k_out in (
+                    ("ms_plan grid", kernels.mean_shift_step(mq, xk, inv)),
+                    ("one block per 128 rows", one[:, :mq.shape[1]])):
+                err = float((k_out - p_out).abs().max())
+                k5_err = max(k5_err, err)
+                check(err <= K1F_TOL_1, f"K5 {tag}, {grid}: max |d| "
+                      f"{err:.3e} <= {K1F_TOL_1:g}")
+        report["K5_max_abs_err"] = k5_err
 
     phase(kernel_checks)
 
@@ -823,12 +926,48 @@ def main():
         for kname in ("K1tc", "K2", "K3"):
             check(launches[kname] > 0,
                   f"{kname} launched on the slice ({launches[kname]})")
-        check(launches["K1"] == 0, f"the FFMA K1 not launched on the slice "
-              f"({launches['K1']})")
+        check(launches["K1"] == 0, f"the f32 K1 not launched on the bf16 "
+              f"slice ({launches['K1']})")
         check(all(np.isfinite(v) for v in mean.values()),
               "slice metrics finite")
 
     phase(slice_run)
+
+    # ---- 4b. the library's default mean-shift (f32, K1 on 3xTF32) on one
+    # batch of stream a, beside bf16 on the same 4 shapes
+    def f32_batch():
+        s = slice(warmup * n_batch, (warmup + 1) * n_batch)  # first timed
+        runs = {}
+        for bf16 in (True, False):
+            for _ in range(2):   # the second run of each mode is reported
+                g_b = torch.Generator(device=dev)
+                g_b.manual_seed(4)
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = tp.run_batch(model, pts[s], normals[s], labels[s],
+                                 prim[s], g_b, ms_bf16=bf16, device=dev)
+                torch.cuda.synchronize()
+                runs[bf16] = (m, 1000.0 * (time.perf_counter() - t0)
+                              / n_batch, dict(kernels.LAUNCHES))
+        report["f32_batch"] = {("bf16" if k else "f32"): {
+            "per_shape": v[0], "ms_per_shape": v[1], "launches": v[2]}
+            for k, v in runs.items()}
+        keys = ("seg_iou", "prim_iou", "residual", "p_cov", "sk_2")
+        print(f"[4b f32 mean-shift] {n_batch} stream-a shapes: f32 "
+              f"{runs[False][1]:.2f} ms/shape, bf16 {runs[True][1]:.2f} "
+              "ms/shape; " + ", ".join(
+                  f"{k} {np.mean(runs[False][0][k]):.5f} (bf16 "
+                  f"{np.mean(runs[True][0][k]):.5f})" for k in keys),
+              flush=True)
+        print(f"  launches: f32 {runs[False][2]}, bf16 {runs[True][2]}")
+        check(runs[False][2]["K1"] > 0 and runs[False][2]["K1tc"] == 0,
+              f"f32 batch launched the 3xTF32 K1 ({runs[False][2]['K1']}) "
+              "and not the bf16 one")
+        check(all(np.isfinite(np.mean(runs[False][0][k])) for k in keys),
+              "f32 batch metrics finite")
+
+    phase(f32_batch)
 
     # ---- 5. SplineNet training
     def train_run():
@@ -882,56 +1021,70 @@ def main():
                   f"{GRAD_RTOL:g} |ref| + {GRAD_ATOL:g} of the CPU's (worst "
                   f"{worst}: {grad_err[worst][0]:.3e} of "
                   f"{grad_err[worst][1]:.3e})")
-        # (b) open and (c) closed through run_training, (d) their validation
+        # (b) open and (c) closed through run_training, (d) their
+        # validation; each run twice from the same seed and data
         for sname, warm, timed in (("open", 3, 20), ("closed", 1, 5)):
             closed = sname == "closed"
-            gen_s = synthetic_batches(np.random.RandomState(10 + closed),
-                                      SPLINE_BATCH, SPLINE_POINTS, GRID,
-                                      closed)
-            batches = [next(gen_s) for _ in range(warm + timed + 2)]
-            cfg = Config(model_path=f"chip_smoke_{sname}",
-                         batch_size=SPLINE_BATCH, grid_size=GRID, lr=1e-3,
-                         loss_weight=0.9, num_epochs=1, seed=0,
-                         log_dir=os.path.join(OUT_DIR, "train_logs"))
-            timer = StageTimer(True)
-            kernels.reset_launches()
-            res = tsp.run_training(cfg, closed, iter(batches[:-2]),
-                                   iter(batches[-2:]), warm + timed,
-                                   val_steps=2, checkpoint=False,
-                                   device=dev, timer=timer)
-            launches = dict(kernels.LAUNCHES)
-            timer.ms()   # synchronises
-            ev = timer.events
-            ms_step = ev["knn_forward"][warm][0].elapsed_time(
-                ev["optimizer"][-1][1]) / timed
-            stage = {k: sum(a.elapsed_time(b) for a, b in ev[k][warm:])
-                     / timed for k in tsp.STAGES}
-            losses = [st["loss"] for st in res.steps]
-            val_cd = res.epochs[-1]["val_cd"]
-            for k in launches:
-                out["launches"][k] += launches[k]
-            out[sname] = {"ms_per_step": ms_step,
-                          "patches_per_s": SPLINE_BATCH * 1000.0 / ms_step,
-                          "stage_ms_per_step": stage, "losses": losses,
-                          "val_cd": val_cd, "launches": launches,
-                          "warmup_steps": warm, "timed_steps": timed}
-            print(f"[5 train] ({'b' if not closed else 'c'}) {sname}: "
-                  f"{timed} timed steps, {ms_step:.3f} ms/step, "
-                  f"{SPLINE_BATCH * 1000.0 / ms_step:.1f} patches/s; stage "
-                  "ms/step: " + ", ".join(f"{k} {v:.3f}"
-                                          for k, v in stage.items()),
-                  flush=True)
-            print(f"  losses: {', '.join(f'{v:.5f}' for v in losses)}")
-            print(f"  (d) validation chamfer (sqrt, two-sided, 2 batches): "
-                  f"{val_cd:.6f}; launches {launches}", flush=True)
-            check(all(np.isfinite(v) for v in losses) and np.isfinite(val_cd),
-                  f"{sname} losses and validation chamfer finite")
-            if not closed:
-                first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-                check(last < first, f"open loss falls: mean of the last 5 "
-                      f"{last:.5f} < first 5 {first:.5f}")
-            check(launches["K3"] > 0 and launches["K4"] > 0,
-                  f"{sname} training launched K3 and K4 ({launches})")
+            runs = []
+            for run in (1, 2):
+                gen_s = synthetic_batches(np.random.RandomState(10 + closed),
+                                          SPLINE_BATCH, SPLINE_POINTS, GRID,
+                                          closed)
+                batches = [next(gen_s) for _ in range(warm + timed + 2)]
+                cfg = Config(model_path=f"chip_smoke_{sname}",
+                             batch_size=SPLINE_BATCH, grid_size=GRID,
+                             lr=1e-3, loss_weight=0.9, num_epochs=1, seed=0,
+                             log_dir=os.path.join(OUT_DIR, "train_logs"))
+                timer = StageTimer(True)
+                kernels.reset_launches()
+                res = tsp.run_training(cfg, closed, iter(batches[:-2]),
+                                       iter(batches[-2:]), warm + timed,
+                                       val_steps=2, checkpoint=False,
+                                       device=dev, timer=timer)
+                launches = dict(kernels.LAUNCHES)
+                timer.ms()   # synchronises
+                ev = timer.events
+                ms_step = ev["knn_forward"][warm][0].elapsed_time(
+                    ev["optimizer"][-1][1]) / timed
+                stage = {k: sum(a.elapsed_time(b) for a, b in ev[k][warm:])
+                         / timed for k in tsp.STAGES}
+                losses = [st["loss"] for st in res.steps]
+                val_cd = res.epochs[-1]["val_cd"]
+                for k in launches:
+                    out["launches"][k] += launches[k]
+                runs.append({"ms_per_step": ms_step,
+                             "patches_per_s": SPLINE_BATCH * 1000.0 / ms_step,
+                             "stage_ms_per_step": stage, "losses": losses,
+                             "val_cd": val_cd, "launches": launches,
+                             "warmup_steps": warm, "timed_steps": timed})
+                print(f"[5 train] ({'b' if not closed else 'c'}) {sname} run "
+                      f"{run}: {timed} timed steps, {ms_step:.3f} ms/step, "
+                      f"{SPLINE_BATCH * 1000.0 / ms_step:.1f} patches/s; "
+                      "stage ms/step: " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in stage.items()),
+                      flush=True)
+                print("  losses: " + ", ".join(f"{v:.9g}" for v in losses))
+                print(f"  (d) validation chamfer (sqrt, two-sided, 2 "
+                      f"batches): {val_cd:.9g}; launches {launches}",
+                      flush=True)
+                check(all(np.isfinite(v) for v in losses)
+                      and np.isfinite(val_cd),
+                      f"{sname} run {run} losses and validation chamfer "
+                      "finite")
+                if not closed:
+                    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+                    check(last < first, f"open run {run} loss falls: mean "
+                          f"of the last 5 {last:.5f} < first 5 {first:.5f}")
+                check(launches["K3"] > 0 and launches["K4"] > 0,
+                      f"{sname} run {run} launched K3 and K4 ({launches})")
+            out[sname], out[f"{sname}_repeat"] = runs
+            diff = [i + 1 for i, (a, b) in enumerate(
+                zip(runs[0]["losses"], runs[1]["losses"])) if a != b]
+            check(not diff and runs[0]["val_cd"] == runs[1]["val_cd"],
+                  f"{sname} training repeats: two runs from one seed give "
+                  f"equal losses at all {len(runs[0]['losses'])} steps and "
+                  f"equal validation chamfer (first differing step "
+                  f"{diff[0] if diff else None})")
 
     phase(train_run)
 
@@ -947,23 +1100,47 @@ def main():
         bw_f = float(bw)
         for bf16 in (False, True):
             k_ms = cuda_ms(lambda: kernels.mean_shift_iterations(
-                embn, bw, it, bf16_dots=bf16), 10 if bf16 else 3)
+                embn, bw, it, bf16_dots=bf16), 10 if bf16 else 5)
             p_ms = cuda_ms(lambda: kernels.mean_shift_iterations_plain(
                 embn, bw, it, bf16_dots=bf16), 3)
             xs = embn.to(torch.bfloat16) if bf16 else embn
             l_ms = cuda_ms(lambda: sdpa_mean_shift(xs, bw_f, it), 3)
-            peak = PEAK_BF16 if bf16 else PEAK_FP32
-            bound = 1000.0 * max(k1_flops / peak, k1_bytes / HBM_BYTES_S)
             tag = "bf16" if bf16 else "f32"
-            print(f"[6 times] K1 {tag} ({'tensor cores' if bf16 else 'FFMA'})"
-                  f" 10000x128x50: kernel {k_ms:.3f} ms "
-                  f"({k1_flops / k_ms / 1e9:.1f} TFLOP/s, "
-                  f"{100.0 * bound / k_ms:.1f}% of the bound), plain "
-                  f"{p_ms:.3f} ms, SDPA yardstick {l_ms:.3f} ms, bound "
-                  f"{bound:.3f} ms (operations)"
-                  + (f", exp floor on the MUFU units {mufu_ms:.3f} ms"
-                     if bf16 else ""), flush=True)
+            if bf16:
+                bound = 1000.0 * max(k1_flops / PEAK_BF16,
+                                     k1_bytes / HBM_BYTES_S)
+                extra = f", exp floor on the MUFU units {mufu_ms:.3f} ms"
+            else:
+                # the f32 function on the tensor cores in 3xTF32 (three
+                # products for each one), or on the CUDA cores' f32 FMA:
+                # the smaller is the bound
+                tf32_ms = 1000.0 * 3 * k1_flops / PEAK_TF32
+                fma_ms = 1000.0 * k1_flops / PEAK_FP32
+                bound = max(min(tf32_ms, fma_ms),
+                            1000.0 * k1_bytes / HBM_BYTES_S)
+                extra = (f" (3xTF32 on the tensor cores {tf32_ms:.3f} ms, "
+                         f"f32 FMA on the CUDA cores {fma_ms:.3f} ms), exp "
+                         f"floor on the MUFU units {mufu_ms:.3f} ms")
+            print(f"[6 times] K1 {tag} (tensor cores, "
+                  f"{'bf16' if bf16 else '3xTF32'}) 10000x128x50: kernel "
+                  f"{k_ms:.3f} ms ({k1_flops / k_ms / 1e9:.1f} TFLOP/s of the "
+                  f"f32 function, {100.0 * bound / k_ms:.1f}% of the bound), "
+                  f"plain {p_ms:.3f} ms, SDPA yardstick {l_ms:.3f} ms, bound "
+                  f"{bound:.3f} ms (operations){extra}", flush=True)
             report[f"K1_{tag}_ms"] = (k_ms, p_ms, bound, l_ms)
+        # the 3xTF32 K1's two grids at 10,000 and 4,999 stream-a rows
+        inv = kernels._inv2b2(bw, dev)
+        grids = {}
+        for rows in (n, 4999):
+            x_r = embn[:rows].contiguous()
+            for g in (kernels.ms_plan(rows, sms, kernels.MS_TF32_TILE)[0],
+                      -(-rows // kernels.MS_BLOCK_ROWS)):
+                grids[f"{rows} rows, grid {g}"] = cuda_ms(
+                    lambda: kernels._ms_iterations_tf32(x_r, x_r, inv, it, g),
+                    3)
+        report["K1_f32_grid_ms"] = grids
+        print("  K1 f32 through _ms_iterations_tf32: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in grids.items()), flush=True)
         # the tensor-core launch alone, without the wrapper's tiling and
         # allocations (the counters zeroed as the wrapper does)
         grid, slots = kernels.ms_plan(n, sms)
@@ -973,7 +1150,6 @@ def main():
         ws = torch.empty(2 * blocks * slots * kernels.MS_PART_FLOATS,
                          device=dev)
         counters = torch.zeros(blocks, dtype=torch.int32, device=dev)
-        inv = kernels._inv2b2(bw, dev)
         bare_ms = cuda_ms(lambda: (counters.zero_(), kernels._launch(
             "K1tc", xt.data_ptr(), out.data_ptr(), inv.data_ptr(),
             ws.data_ptr(), counters.data_ptr(), n, it, grid, slots)), 10)
@@ -995,15 +1171,19 @@ def main():
         report["K1tc_grid_ms"] = grids
         print("  K1 bf16 through _ms_iterations_tc: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in grids.items()), flush=True)
-        for tag, kname, src in (
-                ("f32", "K1", "ms_iterations"),
-                ("bf16", "K1tc", "ms_iterations_tc")):
+        # launches: the bf16 K1 on the slice, the f32 K1 on phase 4b's f32
+        # batch (the slice runs bf16)
+        f32_l = report.get("f32_batch", {}).get("f32", {}).get(
+            "launches", {"K1": 0})
+        for tag, kname, src, n_l in (
+                ("f32", "K1", "ms_iterations_tf32", f32_l["K1"]),
+                ("bf16", "K1tc", "ms_iterations_tc", launches["K1tc"])):
             k_ms, p_ms, bound, l_ms = report[f"K1_{tag}_ms"]
             entries.append({
                 "name": src, "route": "cuda",
                 "source": f"parsenet_tpu_torch/csrc/{src}.cu",
                 "replaces": "parsenet_tpu/ops/pallas_kernels.py:212",
-                "launches": launches[kname],
+                "launches": n_l,
                 "max_abs_err": report.get(f"K1_{tag}_max_abs_err"),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": "operations", "library_ms": l_ms})
@@ -1022,13 +1202,26 @@ def main():
                                      3000)
         a_p = kernels.auction_assign_plain(ben, hg._EPS0, hg._ESC_EVERY,
                                            hg._ESC, 3000)
-        k_ms = cuda_ms(lambda: kernels.auction_assign(
-            ben, hg._EPS0, hg._ESC_EVERY, hg._ESC, 3000), 20)
+        k2 = lambda: kernels.auction_assign(             # noqa: E731
+            ben, hg._EPS0, hg._ESC_EVERY, hg._ESC, 3000)
+        k_ms = cuda_ms(k2, 20)
+        k_dev = graph_ms(k2, 20)
+        # the launch alone on the padded matrix (the wrapper pads it with
+        # three small PyTorch operations first)
+        bp = kernels._pad_benefit(ben[None] if ben.dim() == 2 else ben)
+        o2 = torch.empty(bp.shape[:2], dtype=torch.int32, device=dev)
+        k_bare = graph_ms(lambda: kernels._launch(
+            "K2", bp.data_ptr(), o2.data_ptr(), bp.shape[0], bp.shape[1],
+            float(hg._EPS0), int(hg._ESC_EVERY), float(hg._ESC),
+            min(3000, kernels.AUCTION_ROUNDS)), 20)
         p_ms = cuda_ms(lambda: kernels.auction_assign_plain(
             ben, hg._EPS0, hg._ESC_EVERY, hg._ESC, 3000), 5)
         bound = 1000.0 * max(k2_ops / PEAK_FP32, k2_bytes / HBM_BYTES_S)
         print(f"[6 times] K2 56x56 ({rounds} rounds to assign all): kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.6f} ms "
+              f"{k_ms:.4f} ms eager (the wrapper's padding included), "
+              f"{k_dev:.4f} ms device ({k_bare:.4f} the launch alone); "
+              f"plain {p_ms:.3f} ms, bound "
+              f"{bound:.6f} ms "
               f"({'operations' if k2_ops / PEAK_FP32 > k2_bytes / HBM_BYTES_S else 'bytes'})",
               flush=True)
         entries.append({
@@ -1040,7 +1233,8 @@ def main():
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": ("operations" if k2_ops / PEAK_FP32
                          > k2_bytes / HBM_BYTES_S else "bytes"),
-            "library_ms": None})
+            "library_ms": None, "device_ms": k_dev,
+            "launch_alone_device_ms": k_bare})
 
         # K3: one shape's three calls (trim, points->samples, samples->points)
         p0 = torch.from_numpy(pts[0]).to(dev)
@@ -1141,8 +1335,10 @@ def main():
             "library_device_ms": k4["library_device_ms"]})
 
         # K5: one step at 10,000 x 128 (no program path runs it); its
-        # yardstick is one f32 SDPA step of the same queries and keys
-        k5_bound = 1000.0 * max(4 * n * n * d / PEAK_FP32,
+        # yardstick is one f32 SDPA step of the same queries and keys; its
+        # bound the 3xTF32 one, as K1 f32's
+        k5_bound = 1000.0 * max(min(3 * 4 * n * n * d / PEAK_TF32,
+                                    4 * n * n * d / PEAK_FP32),
                                 3 * n * d * 4 / HBM_BYTES_S)
         k5_ms = cuda_ms(lambda: kernels.mean_shift_step(m5, embn, inv2b2), 5)
         k5_plain = cuda_ms(lambda: kernels.mean_shift_step_plain(
@@ -1153,7 +1349,7 @@ def main():
               f"{k5_bound:.3f} ms (operations)", flush=True)
         entries.append({
             "name": "ms_step", "route": "cuda",
-            "source": "parsenet_tpu_torch/csrc/ms_iterations.cu",
+            "source": "parsenet_tpu_torch/csrc/ms_iterations_tf32.cu",
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:83",
             "launches": launches["K5"] + train_l["K5"],
             "max_abs_err": report.get("K5_max_abs_err"),

@@ -3,13 +3,15 @@
 Counterpart of parsenet_tpu/ops/pallas_kernels.py. Each TPU kernel is a
 CUDA C++ source for sm_90a under `csrc/`:
 
-  K1 ms_iterations.cu   <- mean_shift_iterations_pallas, f32 (FFMA)
+  K1 ms_iterations_tf32.cu <- mean_shift_iterations_pallas, f32 dots
+                          (wgmma in 3xTF32; the library's default mode)
   K1tc ms_iterations_tc.cu <- mean_shift_iterations_pallas, bf16_dots
-                          (wgmma; the mode the inference path runs)
+                          (wgmma; the mode the inference bench runs)
   K2 auction_assign.cu  <- auction_assign_pallas
   K3 min_sqdist.cu      <- min_sqdist_with_idx_pallas (batched)
   K4 min_sqdist_bwd.cu  <- the backward of min_sqdist_fused's custom VJP
-  K5 ms_iterations.cu   <- mean_shift_step_pallas, a mode of K1's kernel
+  K5 ms_iterations_tf32.cu <- mean_shift_step_pallas, K1 f32's kernel
+                          for one iteration with separate queries
 
 `build_kernels` compiles every source with nvcc into a plain-C shared
 library under `csrc/build/` (one nvcc per source, all started together; a
@@ -40,7 +42,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = {"K1": "ms_iterations.cu", "K1tc": "ms_iterations_tc.cu",
+SOURCES = {"K1": "ms_iterations_tf32.cu", "K1tc": "ms_iterations_tc.cu",
            "K2": "auction_assign.cu", "K3": "min_sqdist.cu",
            "K4": "min_sqdist_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,14 +53,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # kernel -> (library it lives in, C function, argtypes); K5 is K1's kernel
 ENTRIES = {
-    "K1": ("K1", "ms_iterations", [_P, _P, _P, _I, _I, _P]),
+    "K1": ("K1", "ms_iterations_tf32",
+           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "K1tc": ("K1tc", "ms_iterations_tc",
              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "K2": ("K2", "auction_assign", [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
     "K3": ("K3", "min_sqdist_idx",
            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "K4": ("K4", "min_sqdist_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "K5": ("K1", "ms_step", [_P, _P, _P, _P, _I, _I, _P]),
+    "K4": ("K4", "min_sqdist_bwd",
+           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "K5": ("K1", "ms_iterations_tf32",
+           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}
@@ -192,25 +197,29 @@ def mean_shift_iterations_plain(X: torch.Tensor, bandwidth, iterations: int,
 
 
 MS_TILE = 64          # rows of one bf16 tile of X, and of one warpgroup's m
-MS_BLOCK_ROWS = 128   # rows of m per block of the tensor-core kernel
-_MS_TILE_ORDER: dict[str, torch.Tensor] = {}  # device -> tile gather index
+MS_BLOCK_ROWS = 128   # rows of m per block of both tensor-core kernels
+MS_TF32_TILE = 16     # key rows of one tf32 tile (32 KB: X and X^T, hi, lo)
+_MS_TILE_ORDER: dict[tuple, torch.Tensor] = {}  # (layout, device) -> index
 MS_PART_FLOATS = 2 * (MS_TILE * MS_WIDTH + 2 * 128)  # one block's partial
+MS_SPILL_FLOATS = 2 * MS_TILE * MS_WIDTH   # one block's m, spilled (tf32)
 
 
 @functools.lru_cache(maxsize=None)
-def ms_plan(n: int, sms: int) -> tuple[int, int]:
-    """How the tensor-core K1 spreads N rows over a card with `sms` SMs:
-    (grid, slots). An iteration is blocks x tiles units of work (a 128-row
-    block of m against a 64-row tile of X, blocks = ceil(N / 128), tiles =
-    ceil(N / 64)); grid block g takes units [floor(g U / grid),
-    floor((g + 1) U / grid)) in row-block-major order, as the kernel
-    computes them. With fewer row blocks than SMs, grid = min(sms, U): every
-    SM works, at most two row blocks per grid block, and the grid blocks
-    sharing a row block add their partial sums through the workspace; slots
-    is the most that share one. Otherwise one grid block per row block
-    (grid = blocks, slots = 1, no exchange)."""
+def ms_plan(n: int, sms: int, tile: int = MS_TILE,
+            n_keys: Optional[int] = None) -> tuple[int, int]:
+    """How a tensor-core K1 spreads N query rows against `n_keys` key rows
+    (default N) over a card with `sms` SMs: (grid, slots). An iteration is
+    blocks x tiles units of work (a 128-row block of m against a `tile`-row
+    key tile, blocks = ceil(N / 128), tiles = ceil(n_keys / tile): 64 for
+    the bf16 kernel, MS_TF32_TILE for the tf32 one); grid block g takes
+    units [floor(g U / grid), floor((g + 1) U / grid)) in row-block-major
+    order, as the kernels compute them. With fewer row blocks than SMs,
+    grid = min(sms, U): every SM works, at most two row blocks per grid
+    block, and the grid blocks sharing a row block add their partial sums
+    through the workspace; slots is the most that share one. Otherwise one
+    grid block per row block (grid = blocks, slots = 1, no exchange)."""
     blocks = -(-n // MS_BLOCK_ROWS)
-    tiles = -(-n // MS_TILE)
+    tiles = -(-(n if n_keys is None else n_keys) // tile)
     units = blocks * tiles
     if blocks >= sms:
         return blocks, 1
@@ -236,18 +245,77 @@ def ms_tiles_bf16(X: torch.Tensor) -> torch.Tensor:
     n_pad = -(-n // MS_BLOCK_ROWS) * MS_BLOCK_ROWS
     xb = torch.zeros((n_pad, MS_WIDTH), dtype=torch.bfloat16, device=X.device)
     xb[:n, :d] = X
-    return xb.view(-1, MS_TILE * MS_WIDTH)[:, _tile_order(X.device)].reshape(-1)
+    return xb.view(-1, MS_TILE * MS_WIDTH)[:, _tile_order(
+        "bf16", X.device)].reshape(-1)
 
 
-def _tile_order(device: torch.device) -> torch.Tensor:
-    """For each position of a swizzled tile, the row-major index (64 x 128)
-    of the element stored there; cached per device."""
-    key = str(device)
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 x -> (hi, lo): hi = x rounded to tf32 (10 mantissa bits, to
+    nearest, ties away from zero: PTX's cvt.rna.tf32.f32, low 13 bits
+    zero), lo = x - hi, exact, so hi + lo == x. The tensor cores read hi
+    whole and lo truncated to tf32."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+# a k-step's 8 key rows in the order of its slots in the transposed half:
+# slot k < 4 holds row 2k, slot k >= 4 row 2 (k - 4) + 1
+MS_TF32_SLOT_ROW = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def ms_tiles_tf32(X: torch.Tensor) -> torch.Tensor:
+    """The tf32 K1's keys: X [N, D <= 128] f32, zero-padded to
+    [ceil(N / 16) * 16, 128], split by `tf32_split` and cut into 16-row
+    tiles of 8,192 f32 (32 KB), flat. A tile's first half is its rows x
+    features, hi then lo, each four 32-column blocks of 16 rows x 128 bytes
+    (the operand of S = m X^T); its second half the transpose, 128 feature
+    rows of 32 values (16 key rows' hi, then their lo; in each group of 8
+    the rows in MS_TF32_SLOT_ROW order; the operand of O += P X). Both in
+    wgmma's 128-byte swizzle: the 16-byte chunk j of a 128-byte row r is
+    stored at chunk j ^ (r % 8). So, with hl 0 for hi and 1 for lo, element
+    (R, C) of a tile lies at
+      2048 hl + 512 (C // 32) + 32 R + 4 (((C % 32) // 4) ^ (R % 8)) + C % 4
+    and at 4096 + 32 C + 4 ((s // 4) ^ (C % 8)) + s % 4, slot
+    s = 16 hl + 8 (R // 8) + MS_TF32_SLOT_ROW.index(R % 8)."""
+    n, d = X.shape
+    n_pad = -(-n // MS_TF32_TILE) * MS_TF32_TILE
+    xp = torch.zeros((n_pad, MS_WIDTH), dtype=torch.float32, device=X.device)
+    xp[:n, :d] = X
+    src = torch.stack(tf32_split(xp))                     # [2, n_pad, 128]
+    src = src.view(2, -1, MS_TF32_TILE, MS_WIDTH).transpose(0, 1)
+    return src.reshape(-1, 2 * MS_TF32_TILE * MS_WIDTH)[
+        :, _tile_order("tf32", X.device)].reshape(-1)
+
+
+def _tile_order(layout: str, device: torch.device) -> torch.Tensor:
+    """For each position of a swizzled tile of `layout`, the row-major index
+    of the element stored there: for "bf16" into the tile's 64 x 128
+    values, for "tf32" into its [2 (hi, lo), 16, 128] values; cached per
+    device."""
+    key = (layout, str(device))
     if key not in _MS_TILE_ORDER:
-        half, row, chunk, elem = torch.meshgrid(
-            torch.arange(2), torch.arange(MS_TILE), torch.arange(8),
-            torch.arange(8), indexing="ij")
-        src = row * MS_WIDTH + half * 64 + (chunk ^ (row % 8)) * 8 + elem
+        if layout == "bf16":
+            half, row, chunk, elem = torch.meshgrid(
+                torch.arange(2), torch.arange(MS_TILE), torch.arange(8),
+                torch.arange(8), indexing="ij")
+            src = row * MS_WIDTH + half * 64 + (chunk ^ (row % 8)) * 8 + elem
+        else:
+            t, w = MS_TF32_TILE, MS_WIDTH
+            hl, kb, row, chunk, elem = torch.meshgrid(
+                torch.arange(2), torch.arange(4), torch.arange(t),
+                torch.arange(8), torch.arange(4), indexing="ij")
+            nat = (hl * t * w + row * w + kb * 32
+                   + (chunk ^ (row % 8)) * 4 + elem)
+            feat, chunk, elem = torch.meshgrid(
+                torch.arange(w), torch.arange(8), torch.arange(4),
+                indexing="ij")
+            slot = (chunk ^ (feat % 8)) * 4 + elem   # the slot stored there
+            kk = slot % 16
+            key_row = (8 * (kk // 8)
+                       + torch.tensor(MS_TF32_SLOT_ROW)[kk % 8])
+            trn = (slot // 16) * t * w + key_row * w + feat
+            src = torch.cat([nat.reshape(-1), trn.reshape(-1)])
         _MS_TILE_ORDER[key] = src.reshape(-1).to(device)
     return _MS_TILE_ORDER[key]
 
@@ -256,10 +324,10 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
                           bf16_dots: bool = False,
                           tol: float = 0.0) -> torch.Tensor:
     """K1. X: [N, D] f32 unit rows, D <= 128 -> [N, D]. One launch runs all
-    iterations: bf16_dots on the tensor-core kernel (ms_iterations_tc.cu),
-    f32 on the FFMA kernel (ms_iterations.cu). No iteration returns a copy
-    of X, as the plain version does, and launches nothing. The TPU kernel's
-    tol > 0 early exit is not ported."""
+    iterations on the tensor cores: bf16_dots on ms_iterations_tc.cu, f32
+    on ms_iterations_tf32.cu (3xTF32), each on ms_plan's grid. No iteration
+    returns a copy of X, as the plain version does, and launches nothing.
+    The TPU kernel's tol > 0 early exit is not ported."""
     if tol > 0.0:
         raise ValueError("mean_shift_iterations: tol > 0 is not supported")
     if not _on_cuda("mean_shift_iterations", X, scalars=(bandwidth,)):
@@ -273,16 +341,12 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
     if iterations < 1:
         return X.clone()
     inv2b2 = _inv2b2(bandwidth, X.device)
+    sms = _sm_count(X.device)
     if bf16_dots:
-        sms = torch.cuda.get_device_properties(X.device).multi_processor_count
         return _ms_iterations_tc(X, inv2b2, int(iterations),
                                  ms_plan(n, sms)[0])[:, :d]
-    xp = X if d == MS_WIDTH else torch.nn.functional.pad(
-        X, (0, MS_WIDTH - d)).contiguous()
-    out = torch.empty_like(xp)
-    _launch("K1", xp.data_ptr(), out.data_ptr(), inv2b2.data_ptr(), n,
-            int(iterations))
-    return out[:, :d]
+    return _ms_iterations_tf32(X, X, inv2b2, int(iterations),
+                               ms_plan(n, sms, MS_TF32_TILE)[0])[:, :d]
 
 
 def _ms_iterations_tc(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
@@ -303,6 +367,31 @@ def _ms_iterations_tc(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
     return out
 
 
+def _ms_iterations_tf32(m: torch.Tensor, x: torch.Tensor,
+                        inv2b2: torch.Tensor, iterations: int, grid: int,
+                        name: str = "K1") -> torch.Tensor:
+    """One launch of the tf32 kernel (counted as `name`: K1, or K5 for one
+    step of separate queries): `iterations` steps of the queries m [Nq, D
+    <= 128] against the keys x [Nk, D], CUDA f32, over `grid` blocks
+    (ms_plan's with MS_TF32_TILE, or ceil(Nq / 128) for no exchange) ->
+    [Nq, 128] f32 (D zero-padded)."""
+    (nq, d), nk = m.shape, x.shape[0]
+    blocks = -(-nq // MS_BLOCK_ROWS)
+    slots = 1 if grid == blocks else ms_plan(nq, grid, MS_TF32_TILE, nk)[1]
+    qp = m if d == MS_WIDTH else torch.nn.functional.pad(
+        m, (0, MS_WIDTH - d)).contiguous()
+    out = torch.empty((nq, MS_WIDTH), dtype=torch.float32, device=m.device)
+    ws = torch.empty((2 * blocks * slots * MS_PART_FLOATS
+                      + grid * MS_SPILL_FLOATS if grid > blocks else 1,),
+                     dtype=torch.float32, device=m.device)
+    counters = torch.zeros((blocks,), dtype=torch.int32, device=m.device)
+    tiles = ms_tiles_tf32(x)
+    _launch(name, qp.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+            inv2b2.data_ptr(), ws.data_ptr(), counters.data_ptr(), nq, nk,
+            iterations, grid, slots)
+    return out
+
+
 def mean_shift_step_plain(m: torch.Tensor, x: torch.Tensor,
                           inv2b2) -> torch.Tensor:
     """One f32 mean-shift step of the queries m [Nq, D] against the keys x
@@ -316,10 +405,10 @@ def mean_shift_step_plain(m: torch.Tensor, x: torch.Tensor,
 
 def mean_shift_step(m: torch.Tensor, x: torch.Tensor,
                     inv2b2) -> torch.Tensor:
-    """K5, the one-step mode of K1's kernel. m [Nq, D], x [Nk, D] f32,
-    D <= 128, inv2b2 = 1 / (2 b^2) -> [Nq, D]. The key columns are masked
-    by Nk; the TPU kernel masks them by Nq, which agrees at m = x, its only
-    use."""
+    """K5: one iteration of K1 f32's kernel (ms_iterations_tf32.cu) with the
+    queries apart from the keys. m [Nq, D], x [Nk, D] f32, D <= 128,
+    inv2b2 = 1 / (2 b^2) -> [Nq, D]. The key columns are masked by Nk; the
+    TPU kernel masks them by Nq, which agrees at m = x, its only use."""
     if not _on_cuda("mean_shift_step", m, x, scalars=(inv2b2,)):
         return mean_shift_step_plain(m, x, inv2b2)
     _check("mean_shift_step m", m, torch.float32, 2)
@@ -329,15 +418,10 @@ def mean_shift_step(m: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"mean_shift_step: kernel takes non-empty [Nq, D] "
                          f"and [Nk, D], D <= {MS_WIDTH}, got "
                          f"{tuple(m.shape)}, {tuple(x.shape)}")
-    pad = (lambda t: t if d == MS_WIDTH else torch.nn.functional.pad(
-        t, (0, MS_WIDTH - d)).contiguous())
-    mp, xp = pad(m), pad(x)
     inv = torch.as_tensor(inv2b2, dtype=torch.float32,
                           device=m.device).reshape(1).contiguous()
-    out = torch.empty_like(mp)
-    _launch("K5", mp.data_ptr(), xp.data_ptr(), out.data_ptr(),
-            inv.data_ptr(), nq, nk)
-    return out[:, :d]
+    grid = ms_plan(nq, _sm_count(m.device), MS_TF32_TILE, nk)[0]
+    return _ms_iterations_tf32(m, x, inv, 1, grid, "K5")[:, :d]
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +441,8 @@ def _pad_benefit(benefit: torch.Tensor) -> torch.Tensor:
     out = torch.full((b, n_pad, n_pad), -1e6, dtype=torch.float32,
                      device=benefit.device)
     out[:, :n, :n] = benefit
-    pad = torch.arange(n, n_pad, device=benefit.device)
-    out[:, pad, pad] = -1e6 + 1.0
+    # a scalar fill, no host tensor: the padding can be captured in a graph
+    torch.diagonal(out, dim1=1, dim2=2)[:, n:].fill_(-1e6 + 1.0)
     return out
 
 
@@ -567,16 +651,44 @@ def min_sqdist_with_idx(q: torch.Tensor, x: torch.Tensor,
 # K4: backward of the differentiable min squared distance
 # ---------------------------------------------------------------------------
 
+K4_CHUNK = 9216      # targets per block of K4
+K4_SMEM = 232448     # shared memory a block can have
+K4_ENTRY_BYTES = 16  # a query's entry (dq, next), and a target's x + head
+
+
+def ordered_scatter_sub(rows: torch.Tensor, vals: torch.Tensor,
+                        size: int) -> torch.Tensor:
+    """out[r] = ((0 - vals[i1]) - vals[i2]) - ... over the i with rows[i] ==
+    r, in ascending i: a scatter of -vals whose sum order is fixed, the same
+    on every device and in every run. rows [Q] int, vals [Q, C] ->
+    [size, C]. One masked update per rank within a row (a stable sort gives
+    the ranks), so the loop runs as often as the most-picked row is picked."""
+    out = torch.zeros((size, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    if rows.numel() == 0:
+        return out
+    r, order = torch.sort(rows, stable=True)
+    v = vals[order]
+    pos = torch.arange(r.numel(), device=r.device)
+    first = torch.ones_like(r, dtype=torch.bool)
+    first[1:] = r[1:] != r[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k
+        out[r[sel]] = out[r[sel]] - v[sel]
+    return out
+
+
 def min_sqdist_bwd_plain(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
                          g: torch.Tensor):
-    """dq = 2 (q - x[idx]) g, dx = scatter-add of -dq at idx (gather +
-    index_add_). q [B, N, 3], x [B, M, 3], idx, g [B, N] -> (dq, dx)."""
+    """dq = 2 (q - x[idx]) g, dx = scatter of -dq at idx summed in ascending
+    query order (`ordered_scatter_sub`), as K4 sums it. q [B, N, 3], x [B, M,
+    3], idx, g [B, N] -> (dq, dx)."""
     b, m = x.shape[0], x.shape[1]
     rows = (idx.long() + m * torch.arange(b, device=x.device)[:, None])
     xa = x.reshape(b * m, 3)[rows.reshape(-1)].reshape(q.shape)
     dq = 2.0 * (q - xa) * g[..., None]
-    dx = torch.zeros((b * m, 3), dtype=x.dtype, device=x.device)
-    dx.index_add_(0, rows.reshape(-1), -dq.reshape(-1, 3))
+    dx = ordered_scatter_sub(rows.reshape(-1), dq.reshape(-1, 3), b * m)
     return dq, dx.reshape(x.shape)
 
 
@@ -584,9 +696,9 @@ def min_sqdist_bwd(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
                    g: torch.Tensor):
     """K4. The backward of `MinSqdist` for q [B, N, 3], x [B, M, 3], the
     forward's argmin idx [B, N] int32 and the incoming gradient g [B, N] f32
-    -> (dq [B, N, 3], dx [B, M, 3]), one launch. dx sums with shared-memory
-    atomics on the card, so its last bits depend on the order of the adds;
-    dq is bitwise the plain version's."""
+    -> (dq [B, N, 3], dx [B, M, 3]), one launch. Both are bitwise the plain
+    version's: dx sums each target's queries in ascending query order, so
+    runs repeat."""
     if not _on_cuda("min_sqdist_bwd", q, x, idx, g):
         return min_sqdist_bwd_plain(q, x, idx, g)
     for label, t, dtype, ndim in (("q", q, torch.float32, 3),
@@ -610,10 +722,16 @@ def _min_sqdist_bwd(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
     takes the plain version."""
     if q.device.type != "cuda":
         return min_sqdist_bwd_plain(q, x, idx, g)
+    (b, n, _), m = q.shape, x.shape[1]
     dq = torch.empty_like(q)
     dx = torch.empty_like(x)
+    # the query entries go to device memory where they do not fit in a
+    # block's shared memory beside the target chunk
+    ws = (torch.empty((b * n * 4,), dtype=torch.float32, device=q.device)
+          if K4_ENTRY_BYTES * (n + min(m, K4_CHUNK)) > K4_SMEM else None)
     _launch("K4", q.data_ptr(), x.data_ptr(), idx.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dx.data_ptr(), q.shape[0], q.shape[1], x.shape[1])
+            dq.data_ptr(), dx.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            b, n, m)
     return dq, dx
 
 

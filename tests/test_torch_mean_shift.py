@@ -133,19 +133,22 @@ def test_ms_tiles_bf16_layout(rng, n, d):
     assert not got[rest].any()
 
 
+@pytest.mark.parametrize("tile", [64, 16])
 @pytest.mark.parametrize("n,sms", [(10000, 132), (4999, 132), (100, 132),
                                    (1, 132), (192, 132), (16640, 132),
                                    (16896, 132), (20000, 132), (10000, 7)])
-def test_ms_plan_covers_every_unit(n, sms):
-    """The tensor-core K1's work split, with the ranges the kernel computes
-    (unit_start / unit_owner in ms_iterations_tc.cu): each grid block takes
-    a contiguous, non-empty run of (row block, X tile) units within at most
-    two row blocks; the runs cover every unit once; no row block is shared
-    by more blocks than the workspace has slots; with at least as many row
-    blocks as SMs there is one block per row block and no exchange."""
-    blocks, tiles = -(-n // 128), -(-n // 64)
+def test_ms_plan_covers_every_unit(n, sms, tile):
+    """Both tensor-core K1s' work split (64-row key tiles for bf16,
+    MS_TF32_TILE = 16 for tf32), with the ranges the kernels compute
+    (unit_start / unit_owner in ms_iterations_tc.cu and
+    ms_iterations_tf32.cu): each grid block takes a contiguous, non-empty
+    run of (row block, key tile) units within at most two row blocks; the
+    runs cover every unit once; no row block is shared by more blocks than
+    the workspace has slots; with at least as many row blocks as SMs there
+    is one block per row block and no exchange."""
+    blocks, tiles = -(-n // 128), -(-n // tile)
     units = blocks * tiles
-    grid, slots = kernels.ms_plan(n, sms)
+    grid, slots = kernels.ms_plan(n, sms, tile)
     if blocks >= sms:
         assert (grid, slots) == (blocks, 1)
     else:

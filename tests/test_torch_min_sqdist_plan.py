@@ -193,3 +193,26 @@ def test_min_sqdist_plan_fills_the_card(b, n, m):
     top = -(-m // kernels.MSQ_MIN_CHUNK)
     assert all(cost(splits) <= cost(s) + 1e-9
                for s in range(1, min(top, 16 * SMS // base) + 1))
+
+
+@pytest.mark.parametrize("count,size,width", [(500, 7, 3), (2000, 300, 1),
+                                              (64, 1, 5), (0, 4, 3)])
+def test_ordered_scatter_sub_sums_in_query_order(rng, count, size, width):
+    """K4's dx order, as its plain version computes it: out[r] = ((0 -
+    v[i1]) - v[i2]) - ... over ascending i, bit for bit against a Python
+    loop, with values of mixed magnitude so that another order would
+    round differently; rows no value names stay 0."""
+    rows = torch.from_numpy(rng.randint(0, size, count))
+    vals = torch.from_numpy((rng.randn(count, width)
+                             * 10.0 ** rng.randint(-4, 4, (count, 1)))
+                            .astype(np.float32))
+    want = torch.zeros((size, width))
+    for i in range(count):
+        want[rows[i]] = want[rows[i]] - vals[i]
+    got = kernels.ordered_scatter_sub(rows, vals, size)
+    assert torch.equal(got, want)
+    if count >= 500:   # the order shows in the bits
+        back = torch.zeros((size, width))
+        for i in reversed(range(count)):
+            back[rows[i]] = back[rows[i]] - vals[i]
+        assert not torch.equal(back, want)
