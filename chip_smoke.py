@@ -8,10 +8,12 @@ Phases, one line each (plus detail lines):
   1. device: name, count, capability (must be 9.0), nvidia-smi name and
      power limit;
   2. build: nvcc of every kernel source under parsenet_tpu_torch/csrc;
-     the ptxas lines (registers, spills, warnings), the count of HGMMA
-     (wgmma) instructions in the SASS of both tensor-core K1s (bf16 and
-     3xTF32), which must be > 0, and the instructions of K3's scan loop
-     for each R, per (target, query) pair;
+     the ptxas lines (registers, spills, warnings: no spill and no
+     C7513/C7514 "wgmma serialized" note in either K1 library), the count of
+     HGMMA (wgmma) instructions in the SASS of each instantiation of both
+     tensor-core K1s (bf16 and 3xTF32): the fixed-count ones must keep
+     their 24 and 108, the early-exit ones must have some, and the
+     instructions of K3's scan loop for each R, per (target, query) pair;
   3. kernel vs plain on the card at main-path shapes:
      K1 f32 (3xTF32 tensor-core kernel) at the 10,000 x 128 stream-a
         embedding and its bandwidth, on ms_plan's grid (every SM, partial
@@ -50,17 +52,40 @@ Phases, one line each (plus detail lines):
         apart from keys) at 10,000 x 128, queries a perturbed copy of the
         stream-a embedding, keys the embedding, and at 300 queries vs 1,000
         keys and 1,000 vs 300 (D = 64), on both grids: max |d| <= 1e-5;
+     K1 exit (tol 1e-6 and 1e-3, 50 iterations), both modes, both grids,
+        at the stream-a embedding and the clustered rows (N = 100 to
+        10,000, D = 64 and 128): the iterations each 128-row block ran (the
+        kernels' output) must be those the rule gives on the kernel's own
+        fixed-count trajectory, and its m that iteration's, exactly; the
+        iterations equal to the plain version's at exit_rows = 128 but
+        where both deltas at the first disputed iteration lie within
+        2.5e-7 (f32, one iteration apart at most) or 1e-4 (bf16) of tol;
+        max |d| from the plain version within the 50-iteration limits
+        above (1e-3 f32, 1e-2 bf16), and at tol 1e-6 from the kernel's own
+        tol = 0 run within 1e-4 (f32) and 1e-2 (bf16), while at 1e-3 the
+        exit must move m by more than those limits somewhere; each of these
+        launches runs under a watchdog, and one that does not return within
+        60 s fails the run (a hung exchange);
   4. slice: bench.py's stream "a" (seed 7, 2 warm-up + 8 timed batches of 4,
-     10k points, bf16 mean-shift, spline_fit=None, shipped params) through
+     10k points, bf16 mean-shift, the spline slots from the shipped
+     params/{open,closed}_splinenet.npz, shipped params) through
      parsenet_tpu_torch.eval.pipeline.run_batch; quality against the
-     configs/quality_floors.json "bench" floors, shapes/hour, per-stage ms
-     from CUDA events, and launches > 0 for the bf16 K1, K2 and K3, none
-     for the f32 K1;
+     configs/quality_floors.json "bench" floors, printed beside the JAX
+     package's full-path figures (BENCH_r05.json), shapes/hour, per-stage ms
+     from CUDA events, and launches > 0 for the bf16 K1 and K2, 4 of K3 a
+     shape (the slot residual one of them), none for the f32 K1; then the
+     spline-free arm (spline_fit=None, bench.py's BENCH_ABLATE=splines), 2
+     timed batches, beside the JAX package's figures of that arm;
   4b. the library's default f32 mean-shift: the first timed batch of
      stream a through run_batch(..., ms_bf16=False) and, beside it, with
      ms_bf16=True (the second of two runs each, one generator seed): ms a
      shape and the quality metrics of both; the f32 run must launch the
      3xTF32 K1 and not the bf16 one;
+  4c. the early-exit path: guard_mean_shift(..., tol=1e-6) (quantile
+     0.015, 50 iterations, 5,000-point subset, as
+     scripts/torch_ab_mean_shift.py) on the first timed batch's 4
+     embeddings in both modes: both exit kernels launched, labels against
+     the tol = 0 guard's (co-membership >= 0.99), ms a shape;
   5. train: SplineNet at full width (grid 20, k 10, 36 patches of 700
      points, 40 x 40 surface samples, anisotropic, loss_weight 0.9, Adam
      at lr 1e-3):
@@ -87,7 +112,12 @@ Phases, one line each (plus detail lines):
      share of the bound (f32: the smaller of the 3xTF32 tensor-core and
      the f32 FMA floors), the floor the exponentials set on the MUFU
      units, the bf16 launch alone, without the wrapper's tiling and
-     allocations, and both kernels' two grids at 10,000 and 4,999 rows.
+     allocations, and both kernels' two grids at 10,000 and 4,999 rows;
+     K1 exit at 10,000 x 128 x 50, tol 1e-6, on the 8 stream-a embeddings in
+     both modes beside tol = 0, with the iterations it runs as a share of
+     50 (kernels.mean_shift_exit_counts) and the fixed-count bound scaled by
+     that share; the same at the clustered 4,999 and 10,000 rows of phase
+     3, where most row blocks leave early.
      Times are CUDA events around back-to-back eager calls (`cuda_ms`,
      what the program sees); K2, K3 (each of a shape's three inference
      calls, and the training call), K4 and their yardsticks also get a
@@ -99,6 +129,7 @@ ok line; without a CUDA device it exits 1 at once.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -118,12 +149,28 @@ HBM_BYTES_S = 3.35e12
 # clock make the 989 TFLOP/s above
 MUFU_EX2_S = 132 * 16 * 1.83e9
 
-# spline-free stream-a quality of the JAX package (artifacts/
-# r5_infer_ablate.jsonl, arm "splines"), printed beside the port's
-REFERENCE = {"seg_iou": 0.8907, "residual": 0.00907, "p_cov": 0.01523,
-             "sk_2": 0.8899}
-# the port's stream-a quality with the FFMA K1 (PERF.md, PR 2's runs)
-PORT_FFMA_K1 = {"seg_iou": 0.89263, "residual": 0.00861, "sk_2": 0.88841}
+# stream-a quality of the JAX package, printed beside the port's: the full
+# path (BENCH_r05.json) and the spline-free arm (artifacts/
+# r5_infer_ablate.jsonl, arm "splines")
+REFERENCE_FULL = {"seg_iou": 0.8907, "residual": 0.01019, "p_cov": 0.01588,
+                  "sk_2": 0.8688}
+REFERENCE_ABLATE = {"seg_iou": 0.8907, "residual": 0.00907, "p_cov": 0.01523,
+                    "sk_2": 0.8899}
+# K1's early exit: the tolerance scripts/ab_mean_shift.py A/Bs, a coarse
+# one at which leaving early moves m by more than the limits below, and the
+# seconds a launch of phase 3 may take before the run fails as hung
+EXIT_TOL, EXIT_TOL_COARSE = 1e-6, 1e-3
+HANG_S = 60.0
+# Where a row block of K1 exit leaves at another iteration than the plain
+# version's, both deltas at the first disputed iteration must lie within
+# this band of tol, by mode. f32: one iteration apart at most, both deltas
+# within the rounding between the two trajectories' deltas (3xTF32 against
+# f32 sums, about 2e-7 an iteration: the CPU emulation's 2.1e-7 against
+# the Pallas kernel); bf16: the 1-iteration limit K1TC_TOL_1 below, with no
+# bound on the iterations apart, since a block whose rows sit at bf16's
+# rounding floor can stop dead (delta 0) or cycle between bf16 neighbours
+# (delta ~1e-5) on either side.
+EXIT_BAND = {"f32": 2.5e-7, "bf16": 1e-4}
 
 # SplineNet training: full width, and the batch of each parity step:
 # make_spline_batch(RandomState(seed), 36, 700, 20, closed), mean-centred
@@ -202,13 +249,49 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_count(lib, op):
-    """Lines of `cuobjdump -sass lib` that hold the instruction `op`."""
+def sass_count_by_function(lib, op):
+    """{function (mangled name): lines holding the instruction `op`} of
+    `cuobjdump -sass lib`."""
     from torch.utils.cpp_extension import CUDA_HOME
     out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                           str(lib)], capture_output=True, text=True,
                          timeout=300, check=True).stdout
-    return sum(op in line for line in out.splitlines())
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and op in line:
+            counts[fn] += 1
+    return counts
+
+
+def guarded(fn, seconds=HANG_S):
+    """fn() and a synchronize in a watchdog thread: its result, or, if it
+    has not returned within `seconds` (a launch that hangs the card), the
+    run fails at once, with exit code 3 and no ok line. The kernels' own
+    waits trap after 4 s, so a hang shows as an error first."""
+    import threading
+    import torch
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+            torch.cuda.synchronize()
+        except BaseException as e:   # noqa: BLE001 - handed to the caller
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(seconds)
+    if th.is_alive():
+        print(f"chip_smoke: FAILED: a launch did not return within "
+              f"{seconds:g} s (hung)", file=sys.stderr, flush=True)
+        os._exit(3)
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
 
 
 def sass_loop(lib, kernel):
@@ -387,6 +470,82 @@ def sdpa_mean_shift(X, bandwidth, iterations, m0=None):
     return m[0, 0]
 
 
+def k1_launch(kernels, x, bandwidth, bf16, one_block, iterations, tol=0.0,
+              iters=None):
+    """One launch of a tensor-core K1 (tol > 0: its exit kernel, `iters`
+    receiving each row block's iterations) on ms_plan's grid or on one
+    block per 128 rows, under the watchdog -> [N, D]."""
+    n, d = x.shape
+    inv = kernels._inv2b2(bandwidth, x.device)
+    blocks = -(-n // kernels.MS_BLOCK_ROWS)
+    sms = kernels._sm_count(x.device)
+    if bf16:
+        g = blocks if one_block else kernels.ms_plan(n, sms)[0]
+        return guarded(lambda: kernels._ms_iterations_tc(
+            x, inv, iterations, g, tol, iters)[:, :d])
+    g = blocks if one_block else kernels.ms_plan(
+        n, sms, kernels.MS_TF32_TILE)[0]
+    return guarded(lambda: kernels._ms_iterations_tf32(
+        x, x, inv, iterations, g, tol=tol, iters=iters)[:, :d])
+
+
+def block_max(v, rows):
+    """Per-row values [N] -> the max over each `rows`-row block."""
+    import torch
+    n = v.shape[0]
+    pad = torch.full((-(-n // rows) * rows - n,), -float("inf"),
+                     device=v.device, dtype=v.dtype)
+    return torch.cat([v, pad]).view(-1, rows).amax(1)
+
+
+def exit_check(kernels, x, bandwidth, bf16, one_block, tol, iterations=50):
+    """K1 exit against its rule: one exit launch, then the fixed-count
+    kernel's trajectory (the same arithmetic, iterations 1, 2, ... from
+    X): each 128-row block must have run exactly the iterations up to the
+    first whose delta (max |m_j - m_(j-1)| over its rows) is <= tol, all
+    `iterations` if none, and its rows must be that iteration's m (max |d|
+    returned). Beside it the plain version's counts at exit_rows = 128
+    (kernels._ms_plain), and where they differ, both deltas there.
+    -> dict of the counts, the mismatches and the errors."""
+    import torch
+    rows = kernels.MS_BLOCK_ROWS
+    blocks = -(-x.shape[0] // rows)
+    iters = torch.zeros((blocks,), dtype=torch.int32, device=x.device)
+    out = k1_launch(kernels, x, bandwidth, bf16, one_block, iterations, tol,
+                    iters)
+    got = iters.long()
+    rule = torch.full((blocks,), iterations, dtype=torch.long,
+                      device=x.device)
+    found = torch.zeros((blocks,), dtype=torch.bool, device=x.device)
+    traj = []                                  # the kernel's own deltas
+    err_m = torch.zeros((blocks,), device=x.device)
+    prev = x
+    for j in range(1, iterations + 1):
+        m_j = k1_launch(kernels, x, bandwidth, bf16, one_block, j)
+        delta = block_max((m_j - prev).abs().amax(1), rows)
+        traj.append(delta)
+        hit = ~found & ~(delta > tol)
+        rule = torch.where(hit, j, rule)
+        found |= hit
+        at = block_max((out - m_j).abs().amax(1), rows)
+        err_m = torch.where(got == j, at, err_m)
+        prev = m_j
+        if bool(found.all()) and j >= int(got.max()):
+            break
+    _, plain, p_delta = kernels._ms_plain(x, bandwidth, iterations, bf16,
+                                          tol, rows)
+    diff = []
+    for b in torch.nonzero(got != plain).flatten().tolist():
+        j = min(int(got[b]), int(plain[b])) - 1      # the first disputed
+        diff.append((b, int(got[b]), int(plain[b]),
+                     float(traj[j][b]) if j < len(traj) else None,
+                     float(p_delta[j, b])))
+    return {"kernel": got.tolist(), "rule": rule.tolist(),
+            "plain": plain.tolist(), "rule_ok": bool((got == rule).all()),
+            "max_abs_err_m": float(err_m.max()), "plain_diff": diff,
+            "out": out}
+
+
 def clustered(rng, n, d, k=12, noise=0.08):
     """n unit rows of width d around k random unit centres."""
     import numpy as np
@@ -427,6 +586,7 @@ def main():
     from parsenet_tpu_torch.data.synthetic import (make_shape_batch,
                                                    make_spline_batch)
     from parsenet_tpu_torch.eval import pipeline as tp
+    from parsenet_tpu_torch.fitting.spline_apply import build_spline_fit
     from parsenet_tpu_torch.models.dgcnn import load_primitives_embedding
     from parsenet_tpu_torch.models.splinenet import load_splinenet
     from parsenet_tpu_torch.ops import hungarian as hg
@@ -466,12 +626,26 @@ def main():
                 print(f"  {kname} ptxas: {line.strip()}")
 
     def wgmma_in_sass():
-        for kname, src in (("K1tc", "ms_iterations_tc.cu"),
-                           ("K1", "ms_iterations_tf32.cu")):
-            hgmma = sass_count(kernels._lib_path(kname), "HGMMA")
-            report[f"{kname}_hgmma"] = hgmma
-            check(hgmma > 0, f"{src} SASS holds {hgmma} HGMMA (wgmma) "
-                  "instructions")
+        # per instantiation: the fixed-count kernel (template argument
+        # false, "ILb0E") keeps the count it had before the early exit
+        # ("ILb1E") was added beside it
+        for kname, src, fixed in (("K1tc", "ms_iterations_tc.cu", 24),
+                                  ("K1", "ms_iterations_tf32.cu", 108)):
+            by_fn = sass_count_by_function(kernels._lib_path(kname), "HGMMA")
+            kern = [f for f in by_fn if "ms_t" in f and "_kernel" in f]
+            tol0 = sum(by_fn[f] for f in kern if "ILb0E" in f)
+            exit_ = sum(by_fn[f] for f in kern if "ILb1E" in f)
+            report[f"{kname}_hgmma"] = tol0
+            report[f"{kname}_exit_hgmma"] = exit_
+            check(tol0 == fixed, f"{src} fixed-count kernel: {tol0} HGMMA "
+                  f"(wgmma) instructions, as before ({fixed})")
+            check(exit_ > 0, f"{src} early-exit kernel: {exit_} HGMMA")
+            log = kernels.BUILD_LOG.get(kname, "")
+            spills = [ln.strip() for ln in log.splitlines()
+                      if re.search(r"[1-9]\d* bytes spill", ln)]
+            check(not spills and "C7513" not in log and "C7514" not in log,
+                  f"{src}: no spills and no C7513/C7514 note from ptxas "
+                  f"({spills})")
 
     phase(wgmma_in_sass)
 
@@ -531,6 +705,26 @@ def main():
     m5 = embn + 0.01 * torch.randn(embn.shape, device=dev, generator=gen_k)
     m5 = (m5 / torch.linalg.norm(m5, dim=1, keepdim=True)).contiguous()
     inv2b2 = 1.0 / (2.0 * bw * bw)
+    # 8 stream-a embeddings, each at its own bandwidth (phases 3 and 6)
+    gen_e = torch.Generator(device=dev)   # leaves `gen` to the slice
+    gen_e.manual_seed(3)
+    emb8 = []
+    for i in range(8):
+        with torch.no_grad():
+            e = model(torch.from_numpy(np.concatenate(
+                [pts[i:i + 1], normals[i:i + 1]], -1)).to(dev))[0][0]
+        e = (e / (torch.linalg.norm(e, dim=-1, keepdim=True)
+                  + 1e-12)).contiguous()
+        emb8.append((e, ms._initial_bandwidth(
+            ms._subset_sqdist(e, 5000, generator=gen_e), 0.015)))
+
+    # K1 exit's sets (phases 3 and 6): the stream-a embedding and clustered
+    # rows at N = 100 to 10,000, D = 64 and 128
+    exit_sets = [(f"stream a {embn.shape[0]} x {embn.shape[1]}", embn, bw)]
+    rng_x = np.random.RandomState(0)
+    for n_c, d_c in ((100, 128), (1000, 64), (4999, 128), (10000, 128)):
+        exit_sets.append((f"clustered {n_c} x {d_c}", torch.from_numpy(
+            clustered(rng_x, n_c, d_c)).to(dev), 0.2))
 
     # ---- 3. kernels against their plain versions
     def kernel_checks():
@@ -634,21 +828,11 @@ def main():
 
         # both tensor-core K1s on 8 stream-a embeddings at their own
         # bandwidth
-        gen_e = torch.Generator(device=dev)   # leaves `gen` to the slice
-        gen_e.manual_seed(3)
         gen_p = torch.Generator(device=dev)   # the key orders
         gen_p.manual_seed(11)
         agrees, errs, bf16_vs_f32 = [], [], []
         f_agrees, f_errs, f_floor = [], [], []
-        for i in range(8):
-            with torch.no_grad():
-                e = model(torch.from_numpy(np.concatenate(
-                    [pts[i:i + 1], normals[i:i + 1]], -1)).to(dev))[0][0]
-            e = (e / (torch.linalg.norm(e, dim=-1, keepdim=True)
-                      + 1e-12)).contiguous()
-            b = ms._initial_bandwidth(ms._subset_sqdist(e, 5000,
-                                                        generator=gen_e),
-                                      0.015)
+        for i, (e, b) in enumerate(emb8):
             err, k_out, p_out = k1tc_checks(f"stream-a embedding {i}", e, b,
                                             False, its=(50,))
             p_lab = ms.nms(p_out, e, b)[1].cpu().numpy()
@@ -871,67 +1055,178 @@ def main():
                       f"{err:.3e} <= {K1F_TOL_1:g}")
         report["K5_max_abs_err"] = k5_err
 
+        # K1 exit (tol > 0), both modes, both grids, at tol 1e-6 and at
+        # EXIT_TOL_COARSE, where leaving early moves m by far more than the
+        # limits: each row block's iterations and m held to the rule on the
+        # kernel's own fixed-count trajectory (exit_check, exactly); m
+        # within the 50-iteration limit of the plain version at exit_rows =
+        # 128, and its iterations equal to the plain version's but where
+        # both deltas at the first disputed iteration lie within the mode's
+        # EXIT_BAND of tol (f32: and one iteration apart at most); at tol
+        # 1e-6, m within 1e-4 (f32) and 1e-2 (bf16) of the kernel's tol = 0
+        # run. Every launch runs under the watchdog.
+        exit_err = {True: 0.0, False: 0.0}
+        coarse_moved = {True: 0.0, False: 0.0}
+        for tag, x, b in exit_sets:
+            for bf16 in (True, False):
+                mode = "bf16" if bf16 else "f32"
+                lim = K1TC_TOL_50 if bf16 else K1F_TOL_50
+                band = EXIT_BAND[mode]
+                for tol in (EXIT_TOL, EXIT_TOL_COARSE):
+                    plain = kernels.mean_shift_iterations_plain(
+                        x, b, 50, bf16_dots=bf16, tol=tol,
+                        exit_rows=kernels.MS_BLOCK_ROWS)
+                    for one_block in (False, True):
+                        grid = ("one block per 128 rows" if one_block
+                                else "ms_plan grid")
+                        c = exit_check(kernels, x, b, bf16, one_block, tol)
+                        k_0 = k1_launch(kernels, x, b, bf16, one_block, 50)
+                        err = float((c["out"] - plain).abs().max())
+                        err0 = float((c["out"] - k_0).abs().max())
+                        exit_err[bf16] = max(exit_err[bf16], err)
+                        name = f"K1 exit {mode} {tag}, {grid}, tol {tol:g}"
+                        share = np.mean(c["kernel"]) / 50
+                        report.setdefault("K1_exit_checks", []).append({
+                            "case": name, "iterations": c["kernel"],
+                            "plain_iterations": c["plain"],
+                            "plain_diff": c["plain_diff"],
+                            "max_abs_err": err, "tol0_max_abs_err": err0})
+                        check(c["rule_ok"] and c["max_abs_err_m"] == 0.0,
+                              f"{name}: every row block's iterations and m "
+                              f"follow the rule on the kernel's own "
+                              f"trajectory (m off by {c['max_abs_err_m']:g}"
+                              f"; {100.0 * share:.1f}% of the 50 "
+                              "iterations)")
+                        excused = [
+                            d for d in c["plain_diff"]
+                            if (bf16 or abs(d[1] - d[2]) == 1)
+                            and d[3] is not None
+                            and abs(d[3] - tol) <= band
+                            and abs(d[4] - tol) <= band]
+                        check(len(excused) == len(c["plain_diff"]),
+                              f"{name}: iterations equal to the plain "
+                              f"version's in {len(c['kernel']) - len(excused)}"
+                              f" of {len(c['kernel'])} row blocks, the rest "
+                              f"within {band:g} of tol at the first "
+                              "disputed iteration ((block, kernel, plain, "
+                              "kernel delta, plain delta): "
+                              + ", ".join(f"({d[0]}, {d[1]}, {d[2]}, "
+                                          f"{d[3]:.3g}, {d[4]:.3g})"
+                                          for d in c["plain_diff"][:8])
+                              + ")")
+                        if tol == EXIT_TOL:
+                            lim0 = 1e-2 if bf16 else 1e-4
+                            check(err <= lim and err0 <= lim0,
+                                  f"{name}: max |d| {err:.3e} <= {lim:g} "
+                                  f"from plain, {err0:.3e} <= {lim0:g} "
+                                  "from tol = 0")
+                        else:
+                            coarse_moved[bf16] = max(coarse_moved[bf16],
+                                                     err0)
+                            check(err <= lim, f"{name}: max |d| {err:.3e} "
+                                  f"<= {lim:g} from plain ({err0:.3e} from "
+                                  "tol = 0)")
+        for bf16 in (True, False):
+            lim = K1TC_TOL_50 if bf16 else K1F_TOL_50
+            check(coarse_moved[bf16] > lim,
+                  f"K1 exit {'bf16' if bf16 else 'f32'}, tol "
+                  f"{EXIT_TOL_COARSE:g}: leaving early moves m by up to "
+                  f"{coarse_moved[bf16]:.3e} from the tol = 0 run, more "
+                  f"than the {lim:g} held to the plain version")
+        report["K1tc_exit_max_abs_err"] = exit_err[True]
+        report["K1_exit_max_abs_err"] = exit_err[False]
+
     phase(kernel_checks)
 
-    # ---- 4. the slice
-    def slice_run():
-        floors = json.load(open(os.path.join(REPO, "configs",
-                                             "quality_floors.json")))["bench"]
+    # ---- 4. the slice: bench.py's configuration, with the spline slots,
+    # then the spline-free arm
+    spline_fit = build_spline_fit(device=dev)
+
+    def stream_a(n_timed, fit):
+        """Warm-up and `n_timed` timed batches of stream a through run_batch
+        -> (metric lists, seconds, stage ms a shape, launches)."""
         kernels.reset_launches()
         batches = [slice(b * n_batch, (b + 1) * n_batch)
-                   for b in range(warmup + iters)]
+                   for b in range(warmup + n_timed)]
         for s in batches[:warmup]:
             tp.run_batch(model, pts[s], normals[s], labels[s], prim[s], gen,
-                         ms_bf16=True, device=dev)
+                         ms_bf16=True, spline_fit=fit, device=dev)
         timer = tp.StageTimer(True)
         metrics = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for s in batches[warmup:]:
             m = tp.run_batch(model, pts[s], normals[s], labels[s], prim[s],
-                             gen, ms_bf16=True, device=dev, timer=timer)
+                             gen, ms_bf16=True, spline_fit=fit, device=dev,
+                             timer=timer)
             for k, v in m.items():
                 metrics.setdefault(k, []).extend(v)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        n_shapes = iters * n_batch
+        n_shapes = n_timed * n_batch
+        return (metrics, dt, {k: v / n_shapes for k, v in timer.ms().items()},
+                dict(kernels.LAUNCHES))
+
+    def report_arm(key, label, n_timed, metrics, dt, stage, launches, ref,
+                   ref_name):
+        n_shapes = n_timed * n_batch
         mean = {k: float(np.mean(v)) for k, v in metrics.items()}
-        stage = {k: v / n_shapes for k, v in timer.ms().items()}
-        report["slice"] = {"metrics": mean, "per_shape": metrics,
-                           "shapes_per_hour": n_shapes / dt * 3600.0,
-                           "ms_per_shape": 1000.0 * dt / n_shapes,
-                           "stage_ms_per_shape": stage,
-                           "launches": launches}
-        print(f"[4 slice] {n_shapes} timed shapes: "
+        report[key] = {"metrics": mean, "per_shape": metrics,
+                       "shapes_per_hour": n_shapes / dt * 3600.0,
+                       "ms_per_shape": 1000.0 * dt / n_shapes,
+                       "stage_ms_per_shape": stage, "launches": launches}
+        print(f"[4 slice] {label}: {n_shapes} timed shapes: "
               f"{n_shapes / dt * 3600.0:.1f} shapes/hour, "
               f"{1000.0 * dt / n_shapes:.2f} ms/shape", flush=True)
         print("  quality: " + ", ".join(
-            f"{k} {mean[k]:.5f}" + (f" (JAX spline-free {REFERENCE[k]}"
-                                    if k in REFERENCE else "")
-            + (f", FFMA K1 {PORT_FFMA_K1[k]}" if k in PORT_FFMA_K1 else "")
-            + (")" if k in REFERENCE else "")
+            f"{k} {mean[k]:.5f}" + (f" ({ref_name} {ref[k]})" if k in ref
+                                    else "")
             for k in ("seg_iou", "prim_iou", "residual", "p_cov", "sk_2")))
         print(f"  clusters per shape: mean {mean['num_clusters']:.2f}, max "
               f"{max(metrics['num_clusters'])}")
         print("  stage ms/shape: " + ", ".join(
-            f"{k} {stage.get(k, 0.0):.3f}" for k in tp.STAGES))
-        print(f"  launches (10 batches): {launches}")
+            f"{k} {stage[k]:.3f}" for k in tp.STAGES if k in stage))
+        print(f"  launches ({warmup + n_timed} batches): {launches}")
         check(mean["seg_iou"] >= floors["seg_iou_min"],
-              f"seg_iou {mean['seg_iou']:.4f} >= {floors['seg_iou_min']}")
+              f"{label} seg_iou {mean['seg_iou']:.4f} >= "
+              f"{floors['seg_iou_min']}")
         check(mean["residual"] <= floors["residual_max"],
-              f"residual {mean['residual']:.5f} <= {floors['residual_max']}")
+              f"{label} residual {mean['residual']:.5f} <= "
+              f"{floors['residual_max']}")
         check(mean["sk_2"] >= floors["sk_2_min"],
-              f"sk_2 {mean['sk_2']:.4f} >= {floors['sk_2_min']}")
+              f"{label} sk_2 {mean['sk_2']:.4f} >= {floors['sk_2_min']}")
         for kname in ("K1tc", "K2", "K3"):
             check(launches[kname] > 0,
-                  f"{kname} launched on the slice ({launches[kname]})")
-        check(launches["K1"] == 0, f"the f32 K1 not launched on the bf16 "
-              f"slice ({launches['K1']})")
+                  f"{label}: {kname} launched ({launches[kname]})")
+        check(launches["K1"] == 0 and launches["K1tc_exit"] == 0,
+              f"{label}: neither the f32 K1 nor an exit kernel launched "
+              f"({launches['K1']}, {launches['K1tc_exit']})")
         check(all(np.isfinite(v) for v in mean.values()),
-              "slice metrics finite")
+              f"{label} metrics finite")
+        return mean
+
+    floors = json.load(open(os.path.join(REPO, "configs",
+                                         "quality_floors.json")))["bench"]
+
+    def slice_run():
+        out = stream_a(iters, spline_fit)
+        report_arm("slice", "stream a, spline slots", iters, *out,
+                   REFERENCE_FULL, "JAX full path")
+        launches = out[3]
+        shapes = (warmup + iters) * n_batch
+        # per shape: the coverage trim, both coverage sides, the slot
+        # residual (one batched call)
+        check(launches["K3"] == 4 * shapes, f"K3 launched 4 times a shape, "
+              f"the 12 slot residuals in one ({launches['K3']} for "
+              f"{shapes} shapes)")
 
     phase(slice_run)
+
+    def ablate_run():
+        report_arm("slice_spline_free", "stream a, spline-free arm", 2,
+                   *stream_a(2, None), REFERENCE_ABLATE, "JAX spline-free")
+
+    phase(ablate_run)
 
     # ---- 4b. the library's default mean-shift (f32, K1 on 3xTF32) on one
     # batch of stream a, beside bf16 on the same 4 shapes
@@ -968,6 +1263,50 @@ def main():
               "f32 batch metrics finite")
 
     phase(f32_batch)
+
+    # ---- 4c. the early-exit path: guard_mean_shift with tol on the first
+    # timed batch's embeddings, as scripts/torch_ab_mean_shift.py runs it
+    def exit_path():
+        s = slice(warmup * n_batch, (warmup + 1) * n_batch)
+        with torch.no_grad():
+            e = model(torch.from_numpy(np.concatenate(
+                [pts[s], normals[s]], -1)).to(dev))[0]
+        e = e / (torch.linalg.norm(e, dim=-1, keepdim=True) + 1e-12)
+        out = report["exit_path"] = {}
+        for bf16 in (True, False):
+            mode = "bf16" if bf16 else "f32"
+            runs = {}
+            for tol in (0.0, EXIT_TOL):
+                g_x = torch.Generator(device=dev)
+                g_x.manual_seed(5)
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                labs = [guarded(lambda: ms.guard_mean_shift(
+                    e[i].contiguous(), 0.015, num_samples=5000,
+                    iterations=50, bf16_dots=bf16, generator=g_x,
+                    tol=tol)).labels.cpu().numpy() for i in range(n_batch)]
+                torch.cuda.synchronize()
+                runs[tol] = (labs, 1000.0 * (time.perf_counter() - t0)
+                             / n_batch, dict(kernels.LAUNCHES))
+            agree = [co_membership(a, b) for a, b in
+                     zip(runs[EXIT_TOL][0], runs[0.0][0])]
+            launches = runs[EXIT_TOL][2]
+            kname = "K1tc_exit" if bf16 else "K1_exit"
+            out[mode] = {"ms_per_shape": runs[EXIT_TOL][1],
+                         "ms_per_shape_tol0": runs[0.0][1],
+                         "co_membership": agree, "launches": launches}
+            print(f"[4c exit path] guard_mean_shift {mode}, tol {EXIT_TOL:g}:"
+                  f" {runs[EXIT_TOL][1]:.2f} ms a shape (tol = 0 "
+                  f"{runs[0.0][1]:.2f}); co-membership with tol = 0: "
+                  + ", ".join(f"{v:.6f}" for v in agree)
+                  + f"; launches {launches}", flush=True)
+            check(launches[kname] > 0, f"exit path {mode}: {kname} launched "
+                  f"({launches[kname]})")
+            check(min(agree) >= 0.99, f"exit path {mode}: co-membership with "
+                  f"tol = 0 >= 0.99 (min {min(agree):.6f})")
+
+    phase(exit_path)
 
     # ---- 5. SplineNet training
     def train_run():
@@ -1186,7 +1525,94 @@ def main():
                 "launches": n_l,
                 "max_abs_err": report.get(f"K1_{tag}_max_abs_err"),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": "operations", "library_ms": l_ms})
+                "bound_by": "operations", "library_ms": l_ms, "id": kname})
+
+        # K1 exit at 10,000 x 128 x 50, tol 1e-6, on the 8 stream-a
+        # embeddings beside tol = 0; its bound is the fixed-count bound
+        # scaled by the share of the 50 iterations its row blocks run
+        exit_l = report.get("exit_path", {})
+        for tag, kname, src in (("bf16", "K1tc_exit", "ms_iterations_tc"),
+                                ("f32", "K1_exit", "ms_iterations_tf32")):
+            bf16 = tag == "bf16"
+            k_ms, k0_ms, shares, k_shares = [], [], [], []
+            for e, b in emb8:
+                k_ms.append(cuda_ms(lambda: kernels.mean_shift_iterations(
+                    e, b, it, bf16_dots=bf16, tol=EXIT_TOL), 3))
+                k0_ms.append(cuda_ms(lambda: kernels.mean_shift_iterations(
+                    e, b, it, bf16_dots=bf16), 3))
+                shares.append(float(kernels.mean_shift_exit_counts(
+                    e, b, it, bf16_dots=bf16, tol=EXIT_TOL).float().mean())
+                    / it)
+                k_it = torch.zeros((-(-e.shape[0] // kernels.MS_BLOCK_ROWS),),
+                                   dtype=torch.int32, device=dev)
+                k1_launch(kernels, e, b, bf16, False, it, EXIT_TOL, k_it)
+                k_shares.append(float(k_it.float().mean()) / it)
+            e0, b0 = emb8[0]
+            p_ms = cuda_ms(lambda: kernels.mean_shift_iterations_plain(
+                e0, b0, it, bf16_dots=bf16, tol=EXIT_TOL,
+                exit_rows=kernels.MS_BLOCK_ROWS), 1)
+            share = float(np.mean(shares))
+            bound = report[f"K1_{tag}_ms"][2] * share
+            # the clustered rows of phase 3, where most row blocks leave
+            # early: the exit beside tol = 0, and each one's bound (the
+            # fixed-count bound at that N, scaled by the share it runs)
+            clus = {}
+            for ctag, x, b in exit_sets:
+                if x.shape[0] < 4999:
+                    continue
+                c_share = float(kernels.mean_shift_exit_counts(
+                    x, b, it, bf16_dots=bf16, tol=EXIT_TOL).float().mean()
+                    ) / it
+                c_bound = report[f"K1_{tag}_ms"][2] * c_share * (
+                    x.shape[0] / embn.shape[0]) ** 2
+                # the kernel's own count, beside the plain helper's
+                k_it = torch.zeros((-(-x.shape[0] // kernels.MS_BLOCK_ROWS),),
+                                   dtype=torch.int32, device=dev)
+                k1_launch(kernels, x, b, bf16, False, it, EXIT_TOL, k_it)
+                k_share = float(k_it.float().mean()) / it
+                clus[ctag] = {
+                    "ms": cuda_ms(lambda: kernels.mean_shift_iterations(
+                        x, b, it, bf16_dots=bf16, tol=EXIT_TOL), 3),
+                    "tol0_ms": cuda_ms(lambda: kernels.mean_shift_iterations(
+                        x, b, it, bf16_dots=bf16), 3),
+                    "share": c_share, "kernel_share": k_share,
+                    "kernel_max_iterations": int(k_it.max()),
+                    "bound_ms": c_bound}
+                print(f"[6 times] K1 exit {tag} {ctag} x 50, tol "
+                      f"{EXIT_TOL:g}: kernel {clus[ctag]['ms']:.3f} ms, tol "
+                      f"= 0 {clus[ctag]['tol0_ms']:.3f} ms; iterations run "
+                      f"{100.0 * c_share:.1f}% of 50 (the kernel's own "
+                      f"count {100.0 * k_share:.1f}%, its slowest row block "
+                      f"{int(k_it.max())}); bound {c_bound:.3f} ms",
+                      flush=True)
+            report[f"{kname}_ms"] = {"ms": k_ms, "tol0_ms": k0_ms,
+                                     "share": shares,
+                                     "kernel_share": k_shares,
+                                     "plain_ms": p_ms, "clustered": clus}
+            print(f"[6 times] K1 exit {tag} 10000x128x50, tol {EXIT_TOL:g}, "
+                  f"8 stream-a embeddings: kernel {np.mean(k_ms):.3f} ms ("
+                  + ", ".join(f"{v:.3f}" for v in k_ms) + "), tol = 0 "
+                  f"{np.mean(k0_ms):.3f} ms (" + ", ".join(
+                      f"{v:.3f}" for v in k0_ms) + f"); iterations run "
+                  f"{100.0 * share:.1f}% of 50 (" + ", ".join(
+                      f"{100.0 * v:.1f}" for v in shares) + "; the kernel's "
+                  "own counts " + ", ".join(
+                      f"{100.0 * v:.1f}" for v in k_shares) + f"); plain "
+                  f"{p_ms:.3f} ms (embedding 0); bound {bound:.3f} ms "
+                  "(the fixed-count bound x that share; library: none, the "
+                  "trip count depends on the data)", flush=True)
+            entries.append({
+                "name": f"{src}_exit", "id": kname.replace("_", " "),
+                "route": "cuda",
+                "source": f"parsenet_tpu_torch/csrc/{src}.cu",
+                "replaces": "parsenet_tpu/ops/pallas_kernels.py:213",
+                "launches": exit_l.get(tag, {}).get("launches", {}).get(
+                    kname, 0),
+                "max_abs_err": report.get(f"{kname}_max_abs_err"),
+                "ms": float(np.mean(k_ms)), "plain_ms": p_ms,
+                "bound_ms": bound, "bound_by": "operations",
+                "library_ms": None, "tol0_ms": float(np.mean(k0_ms)),
+                "iteration_share": share, "clustered": clus})
 
         # K2 on a main-path SIOU matrix (shape 0's f32 clustering vs GT)
         lab0 = ms.nms(kernels.mean_shift_iterations(embn, bw, it), embn,
@@ -1234,24 +1660,29 @@ def main():
             "bound_by": ("operations" if k2_ops / PEAK_FP32
                          > k2_bytes / HBM_BYTES_S else "bytes"),
             "library_ms": None, "device_ms": k_dev,
-            "launch_alone_device_ms": k_bare})
+            "launch_alone_device_ms": k_bare, "id": "K2"})
 
-        # K3: one shape's three calls (trim, points->samples, samples->points)
+        # K3: one shape's four calls (trim, points->samples,
+        # samples->points, and the 12 spline slots' residual in one batch)
         p0 = torch.from_numpy(pts[0]).to(dev)
         rec = tp.reconstruct_shape(p0, torch.from_numpy(normals[0]).to(dev),
-                                   lab0, prim0,
-                                   generator=gen, device=dev)
+                                   lab0, prim0, generator=gen,
+                                   spline_fit=spline_fit, device=dev)
         flat = rec.surface_points.reshape(-1, 3).contiguous()
         samp = flat[torch.randint(0, flat.shape[0], (10000,), device=dev,
                                   generator=gen)].contiguous()
-        calls = [(flat, p0[::4].contiguous()), (p0, samp), (samp, p0)]
+        n_slots = tp.EVAL_SPLINE_SLOTS
+        calls = [(flat, p0[::4].contiguous()), (p0, samp), (samp, p0),
+                 (p0.expand(n_slots, -1, -1).contiguous(),
+                  rec.surface_points[:n_slots].contiguous())]
         tot = {k: 0.0 for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                 "library_device_ms", "bound")}
         per_call, err = [], 0.0
         for qq, xx in calls:
-            nq, mx = qq.shape[0], xx.shape[0]
-            b = 1000.0 * max(8 * nq * mx / PEAK_FP32,
-                             ((nq + mx) * 3 * 4 + nq * 8) / HBM_BYTES_S)
+            bq = qq.shape[0] if qq.dim() == 3 else 1
+            nq, mx = qq.shape[-2], xx.shape[-2]
+            b = 1000.0 * max(8 * bq * nq * mx / PEAK_FP32,
+                             bq * ((nq + mx) * 3 * 4 + nq * 8) / HBM_BYTES_S)
             t = time_k3(kernels, qq, xx, 10)
             t["plain_ms"] = cuda_ms(
                 lambda: kernels.min_sqdist_with_idx_plain(qq, xx), 3)
@@ -1259,14 +1690,14 @@ def main():
             err = max(err, float((kernels.min_sqdist_with_idx(qq, xx)[0]
                                   - kernels.min_sqdist_with_idx_plain(
                                       qq, xx)[0]).abs().max()))
-            print(f"[6 times] K3 {nq}x{mx} (plan "
-                  f"{kernels.min_sqdist_plan(1, nq, mx, sms)}): "
+            print(f"[6 times] K3 {bq}x{nq}x{mx} (plan "
+                  f"{kernels.min_sqdist_plan(bq, nq, mx, sms)}): "
                   + k3_line(t) + f", plain {t['plain_ms']:.4f} ms, bound "
                   f"{b:.4f} ms (operations)", flush=True)
-            per_call.append({"shape": [nq, mx], **t})
+            per_call.append({"shape": [bq, nq, mx], **t})
             for k in tot:
                 tot[k] += t[k]
-        print(f"  K3 summed over the shape's three calls: {tot['ms']:.4f} ms "
+        print(f"  K3 summed over the shape's four calls: {tot['ms']:.4f} ms "
               f"eager, {tot['device_ms']:.4f} ms device; cdist "
               f"{tot['library_ms']:.4f} / {tot['library_device_ms']:.4f}; "
               f"bound {tot['bound']:.4f} ms", flush=True)
@@ -1300,7 +1731,7 @@ def main():
             "train_ms": tt["ms"], "train_device_ms": tt["device_ms"],
             "train_plain_ms": t_plain, "train_bound_ms": t_bound,
             "train_library_ms": tt["library_ms"],
-            "train_library_device_ms": tt["library_device_ms"]})
+            "train_library_device_ms": tt["library_device_ms"], "id": "K3"})
 
         # K4 at the training shape, on K3's argmins
         idx = kernels.min_sqdist_with_idx(tq, tx)[1]
@@ -1332,7 +1763,7 @@ def main():
             "ms": k4["ms"], "plain_ms": k4_plain, "bound_ms": k4_bound,
             "bound_by": "bytes", "library_ms": k4["library_ms"],
             "device_ms": k4["device_ms"], "checked_ms": k4["checked_ms"],
-            "library_device_ms": k4["library_device_ms"]})
+            "library_device_ms": k4["library_device_ms"], "id": "K4"})
 
         # K5: one step at 10,000 x 128 (no program path runs it); its
         # yardstick is one f32 SDPA step of the same queries and keys; its
@@ -1354,7 +1785,7 @@ def main():
             "launches": launches["K5"] + train_l["K5"],
             "max_abs_err": report.get("K5_max_abs_err"),
             "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
-            "bound_by": "operations", "library_ms": k5_lib})
+            "bound_by": "operations", "library_ms": k5_lib, "id": "K5"})
 
     phase(kernel_times)
     report["kernels"] = entries

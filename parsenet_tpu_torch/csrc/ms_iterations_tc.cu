@@ -62,6 +62,17 @@
 // distributed shared memory were measured first and lost: at 10,000 rows
 // two or more cluster waves cost more than the split saved.
 // A wait that never ends traps instead of hanging the card.
+//
+// The early exit (tol > 0; the TPU kernel's early_exit=True variant,
+// _make_ms_multi_kernel :165-180, chosen at :213) is the EXIT instantiation
+// of the same kernel, with the rule and its helpers in ms_exit.cuh; the
+// tol = 0 one keeps its code. The previous m of the delta lives in an L2
+// workspace, since shared memory holds m only as bf16; a row block that
+// leaves writes its f32 m and the iterations it ran. All sharers of a row
+// block leave at the same iteration, so no waiter is left on a counter.
+// The producer learns each iteration's decisions behind an mbarrier before
+// it streams the next iteration's tiles, so no bulk copy is in flight when
+// the block leaves (the price: no prefetch across an iteration's end).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -371,11 +382,8 @@ __device__ __forceinline__ Segment segment(int b, int t0, int t1, int g,
 // whole sums over X, the row sums not yet over the quad. Writes the f32
 // rows to `out` after the last iteration (if `write_out`), else the bf16 m
 // into the swizzled A tile at `m_tile`.
-__device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
-                                            float rs1, uint32_t m_tile,
-                                            float* __restrict__ out, int row0,
-                                            int n, int r, int q, int wg,
-                                            bool last, bool write_out) {
+__device__ __forceinline__ void normalize_rows(float (&o)[64], float rs0,
+                                               float rs1) {
     const float den0 = quad_sum(rs0) + 1e-12f;
     const float den1 = quad_sum(rs1) + 1e-12f;
     float ss0 = 0.f, ss1 = 0.f;
@@ -395,6 +403,15 @@ __device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
         o[4 * j] /= nrm0; o[4 * j + 1] /= nrm0;
         o[4 * j + 2] /= nrm1; o[4 * j + 3] /= nrm1;
     }
+}
+
+// The normalised rows to `out` (f32, rows < n) if `last` and `write_out`,
+// or, if not `last`, as bf16 into the swizzled A tile at `m_tile`.
+__device__ __forceinline__ void store_rows(const float (&o)[64],
+                                           uint32_t m_tile,
+                                           float* __restrict__ out, int row0,
+                                           int n, int r, int q, int wg,
+                                           bool last, bool write_out) {
     if (last) {
         if (!write_out) return;
         const int g0 = row0 + r, g1 = g0 + 8;
@@ -429,11 +446,25 @@ __device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
     wg_barrier(1 + wg);
 }
 
+__device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
+                                            float rs1, uint32_t m_tile,
+                                            float* __restrict__ out, int row0,
+                                            int n, int r, int q, int wg,
+                                            bool last, bool write_out) {
+    normalize_rows(o, rs0, rs1);
+    store_rows(o, m_tile, out, row0, n, r, q, wg, last, write_out);
+}
+
+#include "ms_exit.cuh"
+
+template <bool EXIT>
 __global__ void __launch_bounds__(THREADS, 1)
 ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
              const float* __restrict__ inv2b2_ptr, float* __restrict__ ws,
              unsigned* __restrict__ counters, int n, int n_tiles,
-             int n_blocks, int iterations, int slots) {
+             int n_blocks, int iterations, int slots,
+             const float* __restrict__ x32, float* __restrict__ prev,
+             int* __restrict__ iters, float tol) {
     extern __shared__ uint8_t smem_raw[];
     // tiles 1024-byte aligned, as the 128-byte swizzle requires
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -442,6 +473,7 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
     const uint32_t full_bar = x_smem + STAGES * TILE_BYTES;
     const uint32_t empty_bar = full_bar + 8 * STAGES;
     const uint32_t m_full = empty_bar + 8 * STAGES;
+    const ExitSmem ex = exit_smem(smem_raw, m_full + 8);   // exit variant
     const int wg = threadIdx.x / 128;
     const int tid = threadIdx.x % 128;
 
@@ -469,13 +501,16 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
             mbar_init(empty_bar + 8 * s, CONSUMERS * 4);  // one per warp
         }
         mbar_init(m_full, 1);
+        if (EXIT) mbar_init(ex.bar, 1);
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
 
     if (wg == CONSUMERS) {
         // ---- producer: one thread loads m of each segment's row block and
-        // streams the segments' X tiles, every iteration
+        // streams the segments' X tiles, every iteration; in the exit
+        // variant only those of row blocks still iterating, as the
+        // consumers decided at the end of the last iteration
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
                      :: "n"(PRODUCER_REGS));
         if (tid == 0) {
@@ -486,8 +521,13 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
                           CONSUMERS * TILE_BYTES, m_full);
             int stage = 0;
             uint32_t phase = 0;
+            int done0 = 0, done1 = 0;
             for (int it = 0; it < iterations; ++it) {
+                if (EXIT && it > 0
+                    && await_decisions(ex, it, nseg, done0, done1))
+                    break;
                 for (int k = 0; k < nseg; ++k) {
+                    if (EXIT && (k ? done1 : done0)) continue;
                     const Segment sg = k ? seg1 : seg0;
                     for (int t = sg.t0; t < sg.t1; ++t) {
                         mbar_wait(empty_bar + 8 * stage, phase ^ 1);
@@ -514,6 +554,8 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
         const int part_rs = wg * (TILE * D + 2 * 128) + TILE * D + tid;
         mbar_wait(m_full, 0);
 
+        // exit variant: whether each segment's row block has left the loop
+        bool done0 = false, done1 = false;
         int stage = 0;
         uint32_t phase = 0;
         for (int it = 0; it < iterations; ++it) {
@@ -522,6 +564,7 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
                               * PART_FLOATS;
 #pragma unroll 1
             for (int k = 0; k < nseg; ++k) {
+                if (EXIT && (k ? done1 : done0)) continue;
                 const Segment sg = k ? seg1 : seg0;
                 const uint32_t my_m = m_smem + (k * CONSUMERS + wg) * TILE_BYTES;
                 float o[64];
@@ -577,8 +620,18 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
 
                 const int row0 = (sg.b * CONSUMERS + wg) * TILE;
                 if (sg.contrib == 1) {
-                    finish_rows(o, rs0, rs1, my_m, out, row0, n, r, q, wg,
-                                last, true);
+                    if (EXIT) {
+                        normalize_rows(o, rs0, rs1);
+                        const bool leave = decide<TILE>(
+                            o, x32, prev, ex.red, iters, sg.b, true, g, k,
+                            it, iterations, row0 + r, n, q, wg, tid, tol);
+                        (k ? done1 : done0) = leave;
+                        store_rows(o, my_m, out, row0, n, r, q, wg,
+                                   last || leave, true);
+                    } else {
+                        finish_rows(o, rs0, rs1, my_m, out, row0, n, r, q,
+                                    wg, last, true);
+                    }
                     continue;
                 }
                 // publish this block's partial of the row block
@@ -599,7 +652,7 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
 #pragma unroll 1
             for (int k = 0; k < nseg; ++k) {
                 const Segment sg = k ? seg1 : seg0;
-                if (sg.contrib == 1) continue;
+                if (sg.contrib == 1 || (EXIT && (k ? done1 : done0))) continue;
                 if (threadIdx.x == 0)
                     wait_count(counters + sg.b, (it + 1) * sg.contrib);
                 consumers_barrier();
@@ -620,13 +673,73 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
                     rs0 += __ldcg(part + part_rs);
                     rs1 += __ldcg(part + part_rs + 128);
                 }
-                finish_rows(o, rs0, rs1,
-                            m_smem + (k * CONSUMERS + wg) * TILE_BYTES, out,
-                            (sg.b * CONSUMERS + wg) * TILE, n, r, q, wg, last,
-                            sg.slot == 0);
+                const int row0 = (sg.b * CONSUMERS + wg) * TILE;
+                const uint32_t my_m =
+                    m_smem + (k * CONSUMERS + wg) * TILE_BYTES;
+                if (EXIT) {
+                    normalize_rows(o, rs0, rs1);
+                    const bool leave = decide<TILE>(
+                        o, x32, prev, ex.red, iters, sg.b, sg.slot == 0, g, k,
+                        it, iterations, row0 + r, n, q, wg, tid, tol);
+                    (k ? done1 : done0) = leave;
+                    store_rows(o, my_m, out, row0, n, r, q, wg, last || leave,
+                               sg.slot == 0);
+                } else {
+                    finish_rows(o, rs0, rs1, my_m, out, row0, n, r, q, wg,
+                                last, sg.slot == 0);
+                }
+            }
+            if (EXIT) {
+                publish_decisions(ex, done0, done1);
+                if (done0 && (nseg == 1 || done1)) break;
             }
         }
     }
+}
+
+// One launch of the EXIT or the fixed-count kernel (see the entry points).
+template <bool EXIT>
+int launch(const void* xt, void* out, const void* inv2b2, void* ws,
+           void* counters, int n, int iterations, int grid, int slots,
+           const void* x32, void* prev, void* iters, float tol,
+           void* stream) {
+    const int n_tiles = (n + TILE - 1) / TILE;
+    const int n_blocks = (n + ROWS - 1) / ROWS;
+    if (n <= 0 || iterations < 1 || grid < n_blocks
+        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = SMEM_BYTES + (EXIT ? EXIT_SMEM_EXTRA : 0);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tc_kernel<EXIT>);
+    if (err != cudaSuccess) return (int)err;
+    // setmaxnreg can only hand the consumers what the launch allocated
+    if (attr.numRegs < REGS_AT_LAUNCH) return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(ms_tc_kernel<EXIT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
+    float* out_ = static_cast<float*>(out);
+    const float* inv2b2_ = static_cast<const float*>(inv2b2);
+    float* ws_ = static_cast<float*>(ws);
+    unsigned* counters_ = static_cast<unsigned*>(counters);
+    const float* x32_ = static_cast<const float*>(x32);
+    float* prev_ = static_cast<float*>(prev);
+    int* iters_ = static_cast<int*>(iters);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (grid == n_blocks) {
+        ms_tc_kernel<EXIT><<<grid, THREADS, smem, s>>>(
+            xt_, out_, inv2b2_, ws_, counters_, n, n_tiles, n_blocks,
+            iterations, slots, x32_, prev_, iters_, tol);
+    } else {
+        void* args[] = {&xt_, &out_, &inv2b2_, &ws_, &counters_, (void*)&n,
+                        (void*)&n_tiles, (void*)&n_blocks, &iterations,
+                        &slots, &x32_, &prev_, &iters_, &tol};
+        err = cudaLaunchCooperativeKernel((const void*)ms_tc_kernel<EXIT>,
+                                          grid, THREADS, args, smem, s);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -645,37 +758,21 @@ extern "C" int ms_iterations_tc(const void* xt, void* out, const void* inv2b2,
                                 void* ws, void* counters, int n,
                                 int iterations, int grid, int slots,
                                 void* stream) {
-    const int n_tiles = (n + TILE - 1) / TILE;
-    const int n_blocks = (n + ROWS - 1) / ROWS;
-    if (n <= 0 || iterations < 1 || grid < n_blocks
-        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
-        return (int)cudaErrorInvalidValue;
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tc_kernel);
-    if (err != cudaSuccess) return (int)err;
-    // setmaxnreg can only hand the consumers what the launch allocated
-    if (attr.numRegs < REGS_AT_LAUNCH) return (int)cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(ms_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
-    float* out_ = static_cast<float*>(out);
-    const float* inv2b2_ = static_cast<const float*>(inv2b2);
-    float* ws_ = static_cast<float*>(ws);
-    unsigned* counters_ = static_cast<unsigned*>(counters);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (grid == n_blocks) {
-        ms_tc_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-            xt_, out_, inv2b2_, ws_, counters_, n, n_tiles, n_blocks,
-            iterations, slots);
-    } else {
-        void* args[] = {&xt_, &out_, &inv2b2_, &ws_, &counters_, (void*)&n,
-                        (void*)&n_tiles, (void*)&n_blocks, &iterations,
-                        &slots};
-        err = cudaLaunchCooperativeKernel((const void*)ms_tc_kernel, grid,
-                                          THREADS, args, SMEM_BYTES, s);
-        if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaGetLastError();
+    return launch<false>(xt, out, inv2b2, ws, counters, n, iterations, grid,
+                         slots, nullptr, nullptr, nullptr, 0.f, stream);
+}
+
+// K1 exit, bf16 mode (tol > 0): as ms_iterations_tc, and each 128-row block
+// stops once max |new m - m| over its rows < n is <= tol. x32: X in f32,
+// [n, 128]; prev: grid x 2 x 128 x 128 f32 of workspace (each grid block's
+// previous m of its up to two row blocks); iters: ceil(n / 128) int32, the
+// iterations each row block ran.
+extern "C" int ms_iterations_tc_exit(const void* xt, const void* x32,
+                                     void* out, const void* inv2b2, void* ws,
+                                     void* prev, void* iters, void* counters,
+                                     int n, int iterations, int grid,
+                                     int slots, float tol, void* stream) {
+    if (!(tol > 0.f)) return (int)cudaErrorInvalidValue;
+    return launch<true>(xt, out, inv2b2, ws, counters, n, iterations, grid,
+                        slots, x32, prev, iters, tol, stream);
 }

@@ -84,6 +84,16 @@
 // - Exponentials: ex2.approx.ftz with the FFMA pre-scale, within a few ulp
 //   of expf; columns >= nk are exactly 0, as in expf's masked version.
 // A wait that never ends traps instead of hanging the card.
+//
+// K1's early exit (tol > 0; the TPU kernel's early_exit=True variant,
+// _make_ms_multi_kernel :165-180, chosen at :213) is the EXIT instantiation
+// of the same kernel, with the rule and its helpers in ms_exit.cuh (shared
+// with the bf16 kernel); the tol = 0 one keeps its code. The delta is
+// taken on the f32 m before it is split into hi and lo. Each of the two
+// row blocks of a block that spans two (the one whose m is spilled to L2
+// too) leaves on its own delta; the producer streams the next iteration's
+// tiles only for row blocks still iterating, after the consumers'
+// decision.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -468,12 +478,8 @@ enum Dest { TO_SMEM, TO_SPILL, TO_OUT, NOWHERE };
 // whole sums over the keys, the row sums not yet over the quad. Then m
 // goes to the consumer's shared-memory m, to the spill workspace (thread
 // order), or, after the last iteration, to `out` (rows < nq).
-__device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
-                                            float rs1, Dest dest,
-                                            uint32_t m_smem, float* spill,
-                                            float* __restrict__ out,
-                                            int row0, int nq, int r, int q,
-                                            int wg, int tid) {
+__device__ __forceinline__ void normalize_rows(float (&o)[64], float rs0,
+                                               float rs1) {
     const float den0 = quad_sum(rs0) + 1e-12f;
     const float den1 = quad_sum(rs1) + 1e-12f;
     float ss0 = 0.f, ss1 = 0.f;
@@ -493,6 +499,13 @@ __device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
         o[4 * j] /= nrm0; o[4 * j + 1] /= nrm0;
         o[4 * j + 2] /= nrm1; o[4 * j + 3] /= nrm1;
     }
+}
+
+__device__ __forceinline__ void store_rows(const float (&o)[64], Dest dest,
+                                           uint32_t m_smem, float* spill,
+                                           float* __restrict__ out,
+                                           int row0, int nq, int r, int q,
+                                           int wg, int tid) {
     if (dest == TO_SMEM) {
         store_m(o, m_smem, r, q, wg);
     } else if (dest == TO_SPILL) {
@@ -517,12 +530,28 @@ __device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
     }
 }
 
+__device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
+                                            float rs1, Dest dest,
+                                            uint32_t m_smem, float* spill,
+                                            float* __restrict__ out,
+                                            int row0, int nq, int r, int q,
+                                            int wg, int tid) {
+    normalize_rows(o, rs0, rs1);
+    store_rows(o, dest, m_smem, spill, out, row0, nq, r, q, wg, tid);
+}
+
+#include "ms_exit.cuh"
+static_assert(SMEM_BYTES + EXIT_SMEM_EXTRA <= 232448,
+              "shared memory of one block");
+
+template <bool EXIT>
 __global__ void __launch_bounds__(THREADS, 1)
 ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                float* __restrict__ out, const float* __restrict__ inv2b2_ptr,
                float* __restrict__ ws, unsigned* __restrict__ counters,
                int nq, int nk, int n_tiles, int n_blocks, int iterations,
-               int slots) {
+               int slots, float* __restrict__ prev, int* __restrict__ iters,
+               float tol) {
     extern __shared__ uint8_t smem_raw[];
     // tiles 1024-byte aligned, as the 128-byte swizzle requires
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -530,6 +559,7 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
     const uint32_t x_smem = base + CONSUMERS * 2 * M_HALF;
     const uint32_t full_bar = x_smem + STAGES * TILE_BYTES;
     const uint32_t empty_bar = full_bar + 8 * STAGES;
+    const ExitSmem ex = exit_smem(smem_raw, empty_bar + 8 * STAGES);
     const int wg = threadIdx.x / 128;
     const int tid = threadIdx.x % 128;
 
@@ -556,20 +586,27 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
             mbar_init(full_bar + 8 * s, 1);
             mbar_init(empty_bar + 8 * s, CONSUMERS * 4);  // one per warp
         }
+        if (EXIT) mbar_init(ex.bar, 1);
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
 
     if (wg == CONSUMERS) {
         // ---- producer: one thread streams the segments' key tiles, every
-        // iteration
+        // iteration; in the exit variant only those of row blocks still
+        // iterating, as the consumers decided at the end of the last one
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
                      :: "n"(PRODUCER_REGS));
         if (tid == 0) {
             int stage = 0;
             uint32_t phase = 0;
+            int done0 = 0, done1 = 0;
             for (int it = 0; it < iterations; ++it) {
+                if (EXIT && it > 0
+                    && await_decisions(ex, it, nseg, done0, done1))
+                    break;
                 for (int k = 0; k < nseg; ++k) {
+                    if (EXIT && (k ? done1 : done0)) continue;
                     const Segment sg = k ? seg1 : seg0;
                     for (int t = sg.t0; t < sg.t1; ++t) {
                         mbar_wait(empty_bar + 8 * stage, phase ^ 1);
@@ -598,6 +635,8 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
         // the spilled m of the second segment's row block (exchange grids)
         float* spill = ws + (size_t)2 * n_blocks * slots * PART_FLOATS
                           + (size_t)g * SPILL_FLOATS;
+        // exit variant: whether each segment's row block has left the loop
+        bool done0 = false, done1 = false;
 
         int stage = 0;
         uint32_t phase = 0;
@@ -607,6 +646,7 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                               * PART_FLOATS;
 #pragma unroll 1
             for (int k = 0; k < nseg; ++k) {
+                if (EXIT && (k ? done1 : done0)) continue;
                 const Segment sg = k ? seg1 : seg0;
                 const int row0 = (sg.b * CONSUMERS + wg) * MTILE;
                 float o[64];
@@ -678,8 +718,19 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                 if (++stage == STAGES) { stage = 0; phase ^= 1; }
 
                 if (sg.contrib == 1) {   // then this is the only segment
-                    finish_rows(o, rs0, rs1, last ? TO_OUT : TO_SMEM, my_m,
-                                spill, out, row0, nq, r, q, wg, tid);
+                    if (EXIT) {
+                        normalize_rows(o, rs0, rs1);
+                        const bool leave = decide<MTILE>(
+                            o, qrows, prev, ex.red, iters, sg.b, true, g, k,
+                            it, iterations, row0 + r, nq, q, wg, tid, tol);
+                        (k ? done1 : done0) = leave;
+                        store_rows(o, last || leave ? TO_OUT : TO_SMEM, my_m,
+                                   spill, out, row0, nq, r, q, wg, tid);
+                    } else {
+                        finish_rows(o, rs0, rs1, last ? TO_OUT : TO_SMEM,
+                                    my_m, spill, out, row0, nq, r, q, wg,
+                                    tid);
+                    }
                     continue;
                 }
                 // publish this block's partial of the row block
@@ -702,7 +753,8 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
 #pragma unroll 1
             for (int k = nseg - 1; k >= 0; --k) {
                 const Segment sg = k ? seg1 : seg0;
-                if (sg.contrib == 1) continue;
+                if (sg.contrib == 1 || (EXIT && (k ? done1 : done0)))
+                    continue;
                 if (threadIdx.x == 0)
                     wait_count(counters + sg.b, (it + 1) * sg.contrib);
                 consumers_barrier();
@@ -723,14 +775,74 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                     rs0 += __ldcg(part + part_rs);
                     rs1 += __ldcg(part + part_rs + 128);
                 }
-                const Dest dest = last ? (sg.slot == 0 ? TO_OUT : NOWHERE)
+                const int row0 = (sg.b * CONSUMERS + wg) * MTILE;
+                bool leave = false;
+                normalize_rows(o, rs0, rs1);
+                if (EXIT) {
+                    leave = decide<MTILE>(o, qrows, prev, ex.red, iters, sg.b,
+                                          sg.slot == 0, g, k, it, iterations,
+                                          row0 + r, nq, q, wg, tid, tol);
+                    (k ? done1 : done0) = leave;
+                }
+                const Dest dest = last || leave
+                                ? (sg.slot == 0 ? TO_OUT : NOWHERE)
                                 : (k == 1 ? TO_SPILL : TO_SMEM);
-                finish_rows(o, rs0, rs1, dest, my_m, spill, out,
-                            (sg.b * CONSUMERS + wg) * MTILE, nq, r, q, wg,
-                            tid);
+                store_rows(o, dest, my_m, spill, out, row0, nq, r, q, wg,
+                           tid);
+            }
+            if (EXIT) {
+                publish_decisions(ex, done0, done1);
+                if (done0 && (nseg == 1 || done1)) break;
             }
         }
     }
+}
+
+// One launch of the EXIT or the fixed-count kernel (see the entry points).
+template <bool EXIT>
+int launch(const void* q, const void* xt, void* out, const void* inv2b2,
+           void* ws, void* counters, int nq, int nk, int iterations,
+           int grid, int slots, void* prev, void* iters, float tol,
+           void* stream) {
+    const int n_tiles = (nk + TILE - 1) / TILE;
+    const int n_blocks = (nq + ROWS - 1) / ROWS;
+    if (nq <= 0 || nk <= 0 || iterations < 1 || grid < n_blocks
+        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = SMEM_BYTES + (EXIT ? EXIT_SMEM_EXTRA : 0);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tf32_kernel<EXIT>);
+    if (err != cudaSuccess) return (int)err;
+    // setmaxnreg can only hand the consumers what the launch allocated
+    if (attr.numRegs < REGS_AT_LAUNCH)
+        return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(ms_tf32_kernel<EXIT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const float* q_ = static_cast<const float*>(q);
+    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
+    float* out_ = static_cast<float*>(out);
+    const float* inv2b2_ = static_cast<const float*>(inv2b2);
+    float* ws_ = static_cast<float*>(ws);
+    unsigned* counters_ = static_cast<unsigned*>(counters);
+    float* prev_ = static_cast<float*>(prev);
+    int* iters_ = static_cast<int*>(iters);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (grid == n_blocks) {
+        ms_tf32_kernel<EXIT><<<grid, THREADS, smem, s>>>(
+            q_, xt_, out_, inv2b2_, ws_, counters_, nq, nk, n_tiles, n_blocks,
+            iterations, slots, prev_, iters_, tol);
+    } else {
+        void* args[] = {&q_, &xt_, &out_, &inv2b2_, &ws_, &counters_,
+                        (void*)&nq, (void*)&nk, (void*)&n_tiles,
+                        (void*)&n_blocks, &iterations, &slots, &prev_, &iters_,
+                        &tol};
+        err = cudaLaunchCooperativeKernel((const void*)ms_tf32_kernel<EXIT>,
+                                          grid, THREADS, args, smem, s);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -752,38 +864,23 @@ extern "C" int ms_iterations_tf32(const void* q, const void* xt, void* out,
                                   void* counters, int nq, int nk,
                                   int iterations, int grid, int slots,
                                   void* stream) {
-    const int n_tiles = (nk + TILE - 1) / TILE;
-    const int n_blocks = (nq + ROWS - 1) / ROWS;
-    if (nq <= 0 || nk <= 0 || iterations < 1 || grid < n_blocks
-        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
-        return (int)cudaErrorInvalidValue;
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tf32_kernel);
-    if (err != cudaSuccess) return (int)err;
-    // setmaxnreg can only hand the consumers what the launch allocated
-    if (attr.numRegs < REGS_AT_LAUNCH) return (int)cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(ms_tf32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    const float* q_ = static_cast<const float*>(q);
-    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
-    float* out_ = static_cast<float*>(out);
-    const float* inv2b2_ = static_cast<const float*>(inv2b2);
-    float* ws_ = static_cast<float*>(ws);
-    unsigned* counters_ = static_cast<unsigned*>(counters);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (grid == n_blocks) {
-        ms_tf32_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-            q_, xt_, out_, inv2b2_, ws_, counters_, nq, nk, n_tiles, n_blocks,
-            iterations, slots);
-    } else {
-        void* args[] = {&q_, &xt_, &out_, &inv2b2_, &ws_, &counters_,
-                        (void*)&nq, (void*)&nk, (void*)&n_tiles,
-                        (void*)&n_blocks, &iterations, &slots};
-        err = cudaLaunchCooperativeKernel((const void*)ms_tf32_kernel, grid,
-                                          THREADS, args, SMEM_BYTES, s);
-        if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaGetLastError();
+    return launch<false>(q, xt, out, inv2b2, ws, counters, nq, nk,
+                         iterations, grid, slots, nullptr, nullptr, 0.f,
+                         stream);
+}
+
+// K1 exit, f32 mode (tol > 0; queries = keys): as ms_iterations_tf32, and
+// each 128-row block stops once max |new m - m| over its rows < nq is <=
+// tol. prev: grid x 2 x 128 x 128 f32 of workspace (each grid block's
+// previous m of its up to two row blocks); iters: ceil(nq / 128) int32,
+// the iterations each row block ran.
+extern "C" int ms_iterations_tf32_exit(const void* q, const void* xt,
+                                       void* out, const void* inv2b2,
+                                       void* ws, void* prev, void* iters,
+                                       void* counters, int nq, int nk,
+                                       int iterations, int grid, int slots,
+                                       float tol, void* stream) {
+    if (!(tol > 0.f)) return (int)cudaErrorInvalidValue;
+    return launch<true>(q, xt, out, inv2b2, ws, counters, nq, nk, iterations,
+                        grid, slots, prev, iters, tol, stream);
 }

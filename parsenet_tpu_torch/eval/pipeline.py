@@ -1,19 +1,24 @@
-"""Inference and evaluation pipeline, spline-free configuration.
+"""Inference and evaluation pipeline.
 
 Counterpart of parsenet_tpu/eval/pipeline.py:
 
 * `predict_segmentation`: network forward, mean-shift clustering (quantile
   0.015, 50 iterations, K1), per-point types, SIOU over LAP-matched
   segments (K2). Batched: the network runs on [B, N], clustering per shape.
-* `reconstruct_shape` with spline_fit=None: hard one-hot membership,
-  per-segment type by vote, all four geometric fits per segment, surface
-  grids, the closed-form residual and the reference-protocol coverage (K3).
-  Spline segments take the geometric fallback; the spline decoders belong
-  to the next slice of the port.
+* `reconstruct_shape`: hard one-hot membership, per-segment type by vote,
+  all four geometric fits per segment, surface grids; with a `spline_fit`
+  (fitting.spline_apply.build_spline_fit) the 12 largest spline segments
+  are preprocessed (ops.preprocess), decoded by the open and closed
+  SplineNets and replace their geometric fallback, as the JAX package's
+  eval_preprocess=True path does; then the residual (the spline slots' part
+  one batched K3 call a shape) and the reference-protocol coverage (K3).
+  spline_fit=None is the JAX package's BENCH_ABLATE=splines arm: every
+  spline segment keeps its geometric fallback.
 * `run_batch`: one batch through both, as bench.py's shape_pipeline does.
 
-Random draws (the bandwidth subset, the coverage uniforms) are arguments or
-come from an explicit torch.Generator on the run's device.
+Random draws (the bandwidth subset, the spline slots' packing and final
+draws, the coverage uniforms) are arguments or come from an explicit
+torch.Generator on the run's device.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ import torch
 from ..core.guards import EPS, entry_device
 from ..core.profiling import StageTimer
 from ..ops.chamfer import min_sqdist
+from ..fitting.spline_apply import CLOSED_PTS, OPEN_PTS
 from ..ops.mean_shift import guard_mean_shift
+from ..ops.preprocess import BUF, eval_segment_points
 from ..ops.primitive_dist import (GEOM_CONE, GEOM_CYLINDER, GEOM_SPHERE,
                                   geom_type_from_label, residual_select)
 from ..ops.primitive_fits import AllPrimParams, fit_all_primitives_shared_points
@@ -40,7 +47,9 @@ COV_SAMPLES = 10000  # coverage sample budget (reference: test.py:153)
 COV_TRIM_EPS = 0.1   # mesh bit-mapping epsilon (reference: test.py:137)
 COV_TRIM_POINTS = 2500  # input subsample the trim test runs against
 
-STAGES = ("dgcnn", "mean_shift", "siou", "fits_sampling", "residual",
+EVAL_SPLINE_SLOTS = 12  # spline segments decoded a shape, largest first
+STAGES = ("dgcnn", "mean_shift", "siou", "fits_sampling",
+          "spline_preprocess", "spline_decode", "spline_residual", "residual",
           "coverage")
 
 
@@ -131,12 +140,14 @@ def _area_weights(surf: torch.Tensor) -> torch.Tensor:
 
 
 def _fit_and_sample(points, normals, pred_labels, pred_prim):
-    """Per-segment fits and surface grids of one shape.
-    Returns (params, geom_type [K], valid [K], surf [K, G^2, 3], area [K, G^2])."""
+    """Per-segment fits and surface grids of one shape. Returns (params,
+    seg_type [K] in the eval taxonomy, counts [K], geom_type [K], surf
+    [K, G^2, 3], area [K, G^2])."""
     oh = to_one_hot(pred_labels)                          # [N, K]
-    valid = torch.sum(oh, dim=0) >= 20                    # reference drop rule
+    counts = torch.sum(oh, dim=0)
     prim_oh = to_one_hot(remap_primitive_labels(pred_prim), 10)
-    geom_type = geom_type_from_label(primitive_type_per_segment(prim_oh, oh))
+    seg_type = primitive_type_per_segment(prim_oh, oh)
+    geom_type = geom_type_from_label(seg_type)
     seg_mask = oh.T                                       # [K, N]
     params = fit_all_primitives_shared_points(points, normals, seg_mask + EPS)
     t = geom_type[:, None, None]
@@ -151,17 +162,89 @@ def _fit_and_sample(points, normals, pred_labels, pred_prim):
     surf = torch.where(t == GEOM_CONE, sample_cone(
         params.cone.apex, params.cone.axis, params.cone.theta, points,
         seg_mask, SURF_GRID), surf)
-    return params, geom_type, valid, surf, _area_weights(surf)
+    return params, seg_type, counts, geom_type, surf, _area_weights(surf)
 
 
-def _residual(points, pred_labels, params: AllPrimParams, geom_type, valid):
-    """Mean sqrt distance of each point to its own segment's primitive over
-    points of valid segments (reference ResidualLoss, primitives.py:36-44).
-    Labels past K_MAX - 1 read the last segment, as JAX's clamped gather."""
+def slot_segments(seg_type, counts, n_slots: int):
+    """The segments of the spline slots: the largest of a spline type (2
+    open, 9 closed) with >= 100 points first, ties to the lower segment id,
+    as lax.top_k orders them, then the rest. -> (slot_seg [n_slots],
+    slot_valid [n_slots])."""
+    spline_ok = ((seg_type == 2) | (seg_type == 9)) & (counts >= 100)
+    rank_key = torch.where(spline_ok, counts, -1.0)
+    slot_seg = torch.sort(rank_key, descending=True,
+                          stable=True).indices[:n_slots]
+    return slot_seg, spline_ok[slot_seg]
+
+
+def _spline_slots(points, pred_labels, seg_type, counts, spline_fit,
+                  u_pack, u_draw, timer):
+    """The spline slots of one shape (parsenet_tpu/eval/pipeline.py:
+    212-271), each preprocessed to 1,800 rows and decoded. -> (slot_seg
+    [S], slot_valid [S], surfaces [S, sample_grid^2, 3]); invalid slots are
+    decoded too, and left unused."""
+    slot_seg, slot_valid = slot_segments(seg_type, counts, u_pack.shape[0])
+    is_closed = seg_type[slot_seg] == 9
+    with timer("spline_preprocess"):
+        a_max = torch.where(is_closed, CLOSED_PTS, OPEN_PTS)
+        pts_s = eval_segment_points(
+            points, pred_labels[None, :] == slot_seg[:, None], a_max, u_pack,
+            u_draw, n_out=CLOSED_PTS)
+    with timer("spline_decode"):
+        surf_s = spline_fit.batched_eval(pts_s, is_closed)
+    return slot_seg, slot_valid, surf_s
+
+
+def _place_slots(surf, area_w, slot_seg, slot_valid, surf_s):
+    """Valid slots' surfaces replace their segments' geometric ones, tiled
+    (or cut) to the geometric sample count; their area weights are taken on
+    the decoder's own grid first and each row rescaled to its true total
+    (parsenet_tpu/eval/pipeline.py:246-271)."""
+    w_s = _area_weights(surf_s)
+    true_tot = torch.sum(w_s, dim=1, keepdim=True)
+    g2, s2 = surf.shape[1], surf_s.shape[1]
+    reps = max(1, -(-g2 // s2))
+    surf_s = surf_s.repeat(1, reps, 1)[:, :g2]
+    w_s = w_s.repeat(1, reps)[:, :g2]
+    w_s = w_s * true_tot / (torch.sum(w_s, dim=1, keepdim=True) + EPS)
+    surf, area_w = surf.clone(), area_w.clone()
+    surf[slot_seg] = torch.where(slot_valid[:, None, None], surf_s,
+                                 surf[slot_seg])
+    area_w[slot_seg] = torch.where(slot_valid[:, None], w_s,
+                                   area_w[slot_seg])
+    return surf, area_w
+
+
+def _slot_distances(points, pred_labels, slot_seg, slot_valid, slot_surf):
+    """Squared distance of each point to its own spline slot's samples, all
+    slots in one batched K3 call ([S, N] against [S, G^2]), and where that
+    applies: the points of segments in a valid slot. -> (used [N] bool,
+    d [N])."""
+    n, s = points.shape[0], slot_seg.shape[0]
+    lab = torch.clamp(pred_labels, max=K_MAX - 1)
+    d_slot = min_sqdist(points.expand(s, n, 3), slot_surf)        # [S, N]
+    slot_of_seg = torch.zeros(K_MAX, dtype=torch.int64, device=points.device)
+    slot_of_seg[slot_seg] = torch.arange(s, device=points.device)
+    used = torch.zeros(K_MAX, dtype=torch.bool, device=points.device)
+    used[slot_seg] = slot_valid
+    return used[lab], d_slot[slot_of_seg[lab],
+                             torch.arange(n, device=points.device)]
+
+
+def _residual(points, pred_labels, params: AllPrimParams, geom_type, valid,
+              spline_d=None):
+    """Mean sqrt distance of each point to its own segment's surface over
+    points of valid segments: the closed-form distance to its primitive
+    (reference ResidualLoss, primitives.py:36-44), or, where `spline_d`
+    (from _slot_distances) says so, the min distance to its spline slot's
+    samples. Labels past K_MAX - 1 read the last segment, as JAX's clamped
+    gather."""
     n = points.shape[0]
     lab = torch.clamp(pred_labels, max=K_MAX - 1)
     d_own = residual_select(points, params, geom_type)[
         lab, torch.arange(n, device=points.device)]
+    if spline_d is not None:
+        d_own = torch.where(spline_d[0], spline_d[1], d_own)
     pt_valid = valid[lab].to(torch.float32)
     return (torch.sum(torch.sqrt(torch.clamp(d_own, min=1e-12)) * pt_valid)
             / (torch.sum(pt_valid) + EPS))
@@ -198,32 +281,55 @@ def protocol_coverage(points: torch.Tensor, flat_surf: torch.Tensor,
 def reconstruct_shape(points, normals, pred_labels, pred_prim,
                       uniforms: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      spline_fit=None, device=None,
+                      spline_fit=None, slot_uniforms=None, device=None,
                       timer: StageTimer = _NO_TIMER) -> Reconstruction:
-    """Eval-mode fitting of one clustered shape, spline-free.
+    """Eval-mode fitting of one clustered shape.
 
     points/normals [N, 3]; pred_labels [N] cluster ids; pred_prim [N]
     per-point types. uniforms [COV_SAMPLES] for the coverage draw, else
-    drawn from `generator`.
+    drawn from `generator`. spline_fit: fitting.spline_apply.SplineFit, or
+    None for the spline-free arm. slot_uniforms: (u_pack [S, N], u_draw
+    [S, min(N, BUF)]) in [0, 1), the packing and final draws of S slots,
+    else drawn from `generator` after the coverage uniforms for
+    EVAL_SPLINE_SLOTS slots.
     """
-    if spline_fit is not None:
-        raise NotImplementedError(
-            "reconstruct_shape: the spline decoders are slice 2 of the port; "
-            "pass spline_fit=None")
     dev = entry_device(device)
     pts = _as_tensor(points, dev, torch.float32)
     nrm = _as_tensor(normals, dev, torch.float32)
     pred_labels = _as_tensor(pred_labels, dev, torch.int64)
     pred_prim = _as_tensor(pred_prim, dev, torch.int64)
+    n = pts.shape[0]
+    if (uniforms is None or (spline_fit is not None and slot_uniforms is None)
+            ) and generator is None:
+        raise ValueError("reconstruct_shape: pass the draws or a generator")
     if uniforms is None:
-        if generator is None:
-            raise ValueError("reconstruct_shape: pass uniforms or a generator")
         uniforms = torch.rand(COV_SAMPLES, generator=generator, device=dev)
+    if spline_fit is not None and slot_uniforms is None:
+        slot_uniforms = (
+            torch.rand((EVAL_SPLINE_SLOTS, n), generator=generator,
+                       device=dev),
+            torch.rand((EVAL_SPLINE_SLOTS, min(n, BUF)), generator=generator,
+                       device=dev))
     with timer("fits_sampling"):
-        params, geom_type, valid, surf, area_w = _fit_and_sample(
+        params, seg_type, counts, geom_type, surf, area_w = _fit_and_sample(
             pts, nrm, pred_labels, pred_prim)
+        valid = counts >= 20                              # reference drop rule
+    spline_d = None
+    if spline_fit is not None:
+        u_pack, u_draw = (_as_tensor(u, dev, torch.float32)
+                          for u in slot_uniforms)
+        slot_seg, slot_valid, surf_s = _spline_slots(
+            pts, pred_labels, seg_type, counts, spline_fit, u_pack, u_draw,
+            timer)
+        with timer("spline_decode"):
+            surf, area_w = _place_slots(surf, area_w, slot_seg, slot_valid,
+                                        surf_s)
+        with timer("spline_residual"):
+            spline_d = _slot_distances(pts, pred_labels, slot_seg,
+                                       slot_valid, surf[slot_seg])
     with timer("residual"):
-        residual = _residual(pts, pred_labels, params, geom_type, valid)
+        residual = _residual(pts, pred_labels, params, geom_type, valid,
+                             spline_d)
     with timer("coverage"):
         return _finish_coverage(pts, surf, valid, area_w, residual,
                                 _as_tensor(uniforms, dev))
@@ -243,12 +349,14 @@ def _finish_coverage(points, surf, valid, area_w, residual,
 
 @torch.no_grad()
 def run_batch(model, points, normals, labels, prim,
-              generator: torch.Generator, ms_bf16: bool = True, device=None,
+              generator: torch.Generator, ms_bf16: bool = True,
+              spline_fit=None, device=None,
               timer: StageTimer = _NO_TIMER) -> dict:
-    """One batch of shapes through the spline-free main path, as bench.py's
-    shape_pipeline: predict_segmentation then reconstruct_shape per shape.
+    """One batch of shapes through the main path, as bench.py's
+    shape_pipeline: predict_segmentation then reconstruct_shape per shape,
+    with the spline slots of `spline_fit` (None: the spline-free arm).
     points/normals [B, N, 3], labels/prim [B, N]; `generator` lives on the
-    run's device. Returns per-shape metric lists."""
+    run's device and gives every draw. Returns per-shape metric lists."""
     dev = entry_device(device)
     pts = _as_tensor(points, dev, torch.float32)
     nrm = _as_tensor(normals, dev, torch.float32)
@@ -260,7 +368,8 @@ def run_batch(model, points, normals, labels, prim,
     for b in range(pts.shape[0]):
         rec = reconstruct_shape(pts[b], nrm[b], pred.labels[b],
                                 pred.pred_prim[b], generator=generator,
-                                device=dev, timer=timer)
+                                spline_fit=spline_fit, device=dev,
+                                timer=timer)
         for k in out:
             out[k].append(float(getattr(rec, k)))
     out["seg_iou"] = pred.seg_iou.tolist()

@@ -1,0 +1,85 @@
+"""The frozen spline decoders of the inference path.
+
+Counterpart of make_spline_apply(...).batched_eval
+(parsenet_tpu/fitting/pipeline.py:146-167) and of build_spline_fit
+(parsenet_tpu/train/train_e2e.py:56-97), eval mode only: the open and
+closed SplineNets (k = 10, grid 20) in eval mode and the basis matrices of
+their 30 x 30 parameter grids. Each slot's preprocessed points are
+standardised, decoded to a control grid (closed: with its wrap-around row),
+sampled on the grid and carried back to the segment's frame (reference
+src/primitive_forward.py:34-85, 347-397).
+
+`build_spline_fit` reads the committed params/{open,closed}_splinenet.npz
+only. A missing or unreadable file raises: the JAX package falls back to
+randomly initialised decoders there, the port does not.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn as nn
+
+from ..models.splinenet import SplineNet, load_splinenet
+from ..ops.bspline import (close_control_grid, sample_surface,
+                           uniform_knot_bspline)
+from ..ops.standardize import standardize_points, unstandardize_points
+
+PARAMS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "..", "params")
+OPEN_PTS = 1500    # open decoders read the first 1,500 preprocessed rows
+CLOSED_PTS = 1800  # closed ones all 1,800 (primitive_forward.py:996, 1035)
+
+
+class SplineFit(nn.Module):
+    """Open and closed SplineNets with the basis matrices of their sample
+    grids: uniform_knot_bspline(grid, grid, 3, 3, sample_grid) for the open
+    control grid, (grid + 1, grid, ...) for the closed one."""
+
+    def __init__(self, open_model: SplineNet, closed_model: SplineNet,
+                 sample_grid: int = 30):
+        super().__init__()
+        self.open_model = open_model.eval()
+        self.closed_model = closed_model.eval()
+        grid = open_model.grid
+        dev = next(open_model.parameters()).device
+        for name, (u, v) in (
+                ("", uniform_knot_bspline(grid, grid, 3, 3, sample_grid)),
+                ("_c", uniform_knot_bspline(grid + 1, grid, 3, 3,
+                                            sample_grid))):
+            self.register_buffer("nu" + name, torch.from_numpy(u).to(dev))
+            self.register_buffer("nv" + name, torch.from_numpy(v).to(dev))
+
+    def _decode(self, model: SplineNet, pts: torch.Tensor, closed: bool):
+        w = torch.ones(pts.shape[:2], dtype=pts.dtype, device=pts.device)
+        st = standardize_points(pts, w)
+        cp = model(st.points, weights=w).reshape(
+            pts.shape[0], model.grid, model.grid, 3)
+        if closed:
+            surf = sample_surface(self.nu_c, self.nv_c, close_control_grid(cp))
+        else:
+            surf = sample_surface(self.nu, self.nv, cp)
+        return unstandardize_points(surf, st)
+
+    @torch.no_grad()
+    def batched_eval(self, pts1800: torch.Tensor,
+                     is_closed: torch.Tensor) -> torch.Tensor:
+        """pts1800 [S, 1800, 3] preprocessed segment points, is_closed [S]
+        bool -> surfaces [S, sample_grid^2, 3]: every slot through both
+        decoders (open on its first 1,500 rows, closed on all 1,800; weights
+        all ones), the closed one's surface where is_closed."""
+        surf_o = self._decode(self.open_model, pts1800[:, :OPEN_PTS], False)
+        surf_c = self._decode(self.closed_model, pts1800, True)
+        return torch.where(is_closed[:, None, None], surf_c, surf_o)
+
+
+def build_spline_fit(grid: int = 20, sample_grid: int = 30,
+                     params_dir: str = PARAMS_DIR, device=None) -> SplineFit:
+    """The decoders of {params_dir}/{open,closed}_splinenet.npz on `device`
+    (None = "cuda"). Raises when either file is missing or does not fit."""
+    return SplineFit(
+        load_splinenet(os.path.join(params_dir, "open_splinenet.npz"), 0,
+                       grid, device=device),
+        load_splinenet(os.path.join(params_dir, "closed_splinenet.npz"), 1,
+                       grid, device=device),
+        sample_grid)

@@ -7,6 +7,8 @@ CUDA C++ source for sm_90a under `csrc/`:
                           (wgmma in 3xTF32; the library's default mode)
   K1tc ms_iterations_tc.cu <- mean_shift_iterations_pallas, bf16_dots
                           (wgmma; the mode the inference bench runs)
+  K1_exit, K1tc_exit      <- the same with tol > 0 (early_exit=True): each
+                          kernel's exit instantiation
   K2 auction_assign.cu  <- auction_assign_pallas
   K3 min_sqdist.cu      <- min_sqdist_with_idx_pallas (batched)
   K4 min_sqdist_bwd.cu  <- the backward of min_sqdist_fused's custom VJP
@@ -57,6 +59,10 @@ ENTRIES = {
            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "K1tc": ("K1tc", "ms_iterations_tc",
              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "K1_exit": ("K1", "ms_iterations_tf32_exit",
+                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "K1tc_exit": ("K1tc", "ms_iterations_tc_exit",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "K2": ("K2", "auction_assign", [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
     "K3": ("K3", "min_sqdist_idx",
            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -78,8 +84,11 @@ def reset_launches() -> None:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of SOURCES[name], named by a digest of its source, the
+    headers of csrc/ and the flags."""
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
@@ -170,6 +179,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):
 # ---------------------------------------------------------------------------
 
 MS_WIDTH = 128  # the kernel's feature width; narrower inputs are zero-padded
+MS_BLOCK_ROWS = 128   # rows of m per block of both tensor-core kernels
 
 
 def _inv2b2(bandwidth, device) -> torch.Tensor:
@@ -178,30 +188,72 @@ def _inv2b2(bandwidth, device) -> torch.Tensor:
 
 
 def mean_shift_iterations_plain(X: torch.Tensor, bandwidth, iterations: int,
-                                bf16_dots: bool = False) -> torch.Tensor:
+                                bf16_dots: bool = False, tol: float = 0.0,
+                                exit_rows: int = 256) -> torch.Tensor:
     """`iterations` gaussian mean-shift steps of every row of X [N, D]:
     m <- normalize((K @ X) / (rowsum K + 1e-12)), K = exp((2 m.X - 2)
     inv2b2). bf16_dots rounds both operands of both products to bf16 and
-    accumulates in f32; the row sum takes the f32 K."""
+    accumulates in f32; the row sum takes the f32 K. tol > 0: each group
+    of `exit_rows` rows stops once an iteration moves none of its rows by
+    more than tol, the TPU kernel's early exit (its 256-row tile; the CUDA
+    kernels' group is their 128-row block)."""
+    return _ms_plain(X, bandwidth, iterations, bf16_dots, tol, exit_rows)[0]
+
+
+def mean_shift_exit_counts(X: torch.Tensor, bandwidth, iterations: int,
+                           bf16_dots: bool = False, tol: float = 0.0,
+                           exit_rows: int = MS_BLOCK_ROWS) -> torch.Tensor:
+    """The iterations each group of `exit_rows` rows runs in
+    mean_shift_iterations_plain(..., tol, exit_rows): [ceil(N / exit_rows)]
+    int64 (all `iterations` at tol = 0). What a K1 exit call works."""
+    return _ms_plain(X, bandwidth, iterations, bf16_dots, tol, exit_rows)[1]
+
+
+def _ms_plain(X, bandwidth, iterations, bf16_dots, tol, exit_rows):
+    """(m, iterations run per group, deltas): the JAX rule per group, delta
+    = inf, while it < iterations and delta > tol: delta = max |new_m - m|
+    over the group's rows and m = new_m. deltas [iterations run, groups]:
+    each group's delta at each iteration, NaN once it has left (empty at
+    tol = 0)."""
     inv2b2 = _inv2b2(bandwidth, X.device)
     rnd = ((lambda t: t.to(torch.bfloat16).to(torch.float32)) if bf16_dots
            else (lambda t: t))
     xd = rnd(X)
+    n = X.shape[0]
+    group = torch.arange(n, device=X.device) // exit_rows
+    active = torch.ones(-(-n // exit_rows), dtype=torch.bool, device=X.device)
+    counts = torch.zeros(active.shape, dtype=torch.int64, device=X.device)
+    deltas = []
     m = X
     for _ in range(iterations):
+        if tol > 0.0 and not bool(active.any()):
+            break
         s = rnd(m) @ xd.T
         k = torch.exp((2.0 * s - 2.0) * inv2b2)
         new_m = (rnd(k) @ xd) / (torch.sum(k, dim=1, keepdim=True) + 1e-12)
-        m = new_m / (torch.linalg.norm(new_m, dim=1, keepdim=True) + 1e-12)
-    return m
+        new_m = new_m / (torch.linalg.norm(new_m, dim=1, keepdim=True)
+                         + 1e-12)
+        counts += active
+        if tol > 0.0:
+            delta = torch.zeros(active.shape, dtype=X.dtype,
+                                device=X.device).scatter_reduce(
+                0, group, torch.amax(torch.abs(new_m - m), dim=1), "amax")
+            m = torch.where(active[group][:, None], new_m, m)
+            deltas.append(torch.where(active, delta, float("nan")))
+            active = active & (delta > tol)
+        else:
+            m = new_m
+    return m, counts, (torch.stack(deltas) if deltas else
+                       torch.empty((0, active.shape[0]), device=X.device))
 
 
 MS_TILE = 64          # rows of one bf16 tile of X, and of one warpgroup's m
-MS_BLOCK_ROWS = 128   # rows of m per block of both tensor-core kernels
 MS_TF32_TILE = 16     # key rows of one tf32 tile (32 KB: X and X^T, hi, lo)
 _MS_TILE_ORDER: dict[tuple, torch.Tensor] = {}  # (layout, device) -> index
 MS_PART_FLOATS = 2 * (MS_TILE * MS_WIDTH + 2 * 128)  # one block's partial
 MS_SPILL_FLOATS = 2 * MS_TILE * MS_WIDTH   # one block's m, spilled (tf32)
+# the exit kernels' copy of the previous m, per (grid block, row block)
+MS_PREV_FLOATS = MS_BLOCK_ROWS * MS_WIDTH
 
 
 @functools.lru_cache(maxsize=None)
@@ -325,14 +377,14 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
                           tol: float = 0.0) -> torch.Tensor:
     """K1. X: [N, D] f32 unit rows, D <= 128 -> [N, D]. One launch runs all
     iterations on the tensor cores: bf16_dots on ms_iterations_tc.cu, f32
-    on ms_iterations_tf32.cu (3xTF32), each on ms_plan's grid. No iteration
-    returns a copy of X, as the plain version does, and launches nothing.
-    The TPU kernel's tol > 0 early exit is not ported."""
-    if tol > 0.0:
-        raise ValueError("mean_shift_iterations: tol > 0 is not supported")
+    on ms_iterations_tf32.cu (3xTF32), each on ms_plan's grid. tol > 0
+    launches each kernel's early exit (K1tc_exit, K1_exit): a 128-row block
+    stops once an iteration moves none of its rows by more than tol (on the
+    CPU, the plain version with exit_rows = MS_BLOCK_ROWS). No iteration
+    returns a copy of X, as the plain version does, and launches nothing."""
     if not _on_cuda("mean_shift_iterations", X, scalars=(bandwidth,)):
         return mean_shift_iterations_plain(X, bandwidth, iterations,
-                                           bf16_dots)
+                                           bf16_dots, tol, MS_BLOCK_ROWS)
     _check("mean_shift_iterations", X, torch.float32, 2)
     n, d = X.shape
     if n == 0 or d > MS_WIDTH:
@@ -344,16 +396,27 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
     sms = _sm_count(X.device)
     if bf16_dots:
         return _ms_iterations_tc(X, inv2b2, int(iterations),
-                                 ms_plan(n, sms)[0])[:, :d]
+                                 ms_plan(n, sms)[0], tol)[:, :d]
     return _ms_iterations_tf32(X, X, inv2b2, int(iterations),
-                               ms_plan(n, sms, MS_TF32_TILE)[0])[:, :d]
+                               ms_plan(n, sms, MS_TF32_TILE)[0],
+                               tol=tol)[:, :d]
+
+
+def _pad_width(x: torch.Tensor) -> torch.Tensor:
+    """[N, D <= 128] f32 -> contiguous [N, 128], zero-padded."""
+    if x.shape[1] == MS_WIDTH:
+        return x.contiguous()
+    return torch.nn.functional.pad(x, (0, MS_WIDTH - x.shape[1])).contiguous()
 
 
 def _ms_iterations_tc(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
-                      grid: int) -> torch.Tensor:
-    """One launch of the tensor-core K1 on CUDA X [N, D <= 128] f32 over
-    `grid` blocks (ms_plan's, or ceil(N / 128) for no exchange) -> [N, 128]
-    f32 (D zero-padded)."""
+                      grid: int, tol: float = 0.0,
+                      iters: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the tensor-core K1 (K1tc, or K1tc_exit for tol > 0) on
+    CUDA X [N, D <= 128] f32 over `grid` blocks (ms_plan's, or ceil(N /
+    128) for no exchange) -> [N, 128] f32 (D zero-padded). For tol > 0,
+    `iters` (int32 [ceil(N / 128)], if given) receives the iterations each
+    128-row block ran."""
     n = X.shape[0]
     blocks = -(-n // MS_BLOCK_ROWS)
     slots = 1 if grid == blocks else ms_plan(n, grid)[1]
@@ -361,31 +424,66 @@ def _ms_iterations_tc(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
     ws = torch.empty((2 * blocks * slots * MS_PART_FLOATS if grid > blocks
                       else 1,), dtype=torch.float32, device=X.device)
     counters = torch.zeros((blocks,), dtype=torch.int32, device=X.device)
+    if tol > 0.0:
+        prev = torch.empty((grid * 2 * MS_PREV_FLOATS,), dtype=torch.float32,
+                           device=X.device)
+        iters = _iters_out(iters, blocks, X.device)
+        x32 = _pad_width(X)
+        _launch("K1tc_exit", ms_tiles_bf16(X).data_ptr(), x32.data_ptr(),
+                out.data_ptr(), inv2b2.data_ptr(), ws.data_ptr(),
+                prev.data_ptr(), iters.data_ptr(), counters.data_ptr(), n,
+                iterations, grid, slots, float(tol))
+        return out
     _launch("K1tc", ms_tiles_bf16(X).data_ptr(), out.data_ptr(),
             inv2b2.data_ptr(), ws.data_ptr(), counters.data_ptr(), n,
             iterations, grid, slots)
     return out
 
 
+def _iters_out(iters: Optional[torch.Tensor], blocks: int,
+               device: torch.device) -> torch.Tensor:
+    """The exit kernels' output of iterations per 128-row block: `iters`,
+    checked, or a new one."""
+    if iters is None:
+        return torch.empty((blocks,), dtype=torch.int32, device=device)
+    _check("mean_shift_iterations", iters, torch.int32, 1)
+    if iters.shape[0] != blocks or iters.device != device:
+        raise ValueError(f"mean_shift_iterations: iters must hold {blocks} "
+                         f"int32 on {device}, got {tuple(iters.shape)} on "
+                         f"{iters.device}")
+    return iters
+
+
 def _ms_iterations_tf32(m: torch.Tensor, x: torch.Tensor,
                         inv2b2: torch.Tensor, iterations: int, grid: int,
-                        name: str = "K1") -> torch.Tensor:
+                        name: str = "K1", tol: float = 0.0,
+                        iters: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the tf32 kernel (counted as `name`: K1, or K5 for one
-    step of separate queries): `iterations` steps of the queries m [Nq, D
-    <= 128] against the keys x [Nk, D], CUDA f32, over `grid` blocks
-    (ms_plan's with MS_TF32_TILE, or ceil(Nq / 128) for no exchange) ->
-    [Nq, 128] f32 (D zero-padded)."""
-    (nq, d), nk = m.shape, x.shape[0]
+    step of separate queries; K1_exit for tol > 0, queries = keys):
+    `iterations` steps of the queries m [Nq, D <= 128] against the keys x
+    [Nk, D], CUDA f32, over `grid` blocks (ms_plan's with MS_TF32_TILE, or
+    ceil(Nq / 128) for no exchange) -> [Nq, 128] f32 (D zero-padded). For
+    tol > 0, `iters` (int32 [ceil(Nq / 128)], if given) receives the
+    iterations each 128-row block ran."""
+    nq, nk = m.shape[0], x.shape[0]
     blocks = -(-nq // MS_BLOCK_ROWS)
     slots = 1 if grid == blocks else ms_plan(nq, grid, MS_TF32_TILE, nk)[1]
-    qp = m if d == MS_WIDTH else torch.nn.functional.pad(
-        m, (0, MS_WIDTH - d)).contiguous()
+    qp = _pad_width(m)
     out = torch.empty((nq, MS_WIDTH), dtype=torch.float32, device=m.device)
     ws = torch.empty((2 * blocks * slots * MS_PART_FLOATS
                       + grid * MS_SPILL_FLOATS if grid > blocks else 1,),
                      dtype=torch.float32, device=m.device)
     counters = torch.zeros((blocks,), dtype=torch.int32, device=m.device)
     tiles = ms_tiles_tf32(x)
+    if tol > 0.0:
+        prev = torch.empty((grid * 2 * MS_PREV_FLOATS,), dtype=torch.float32,
+                           device=m.device)
+        iters = _iters_out(iters, blocks, m.device)
+        _launch("K1_exit", qp.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+                inv2b2.data_ptr(), ws.data_ptr(), prev.data_ptr(),
+                iters.data_ptr(), counters.data_ptr(), nq, nk, iterations,
+                grid, slots, float(tol))
+        return out
     _launch(name, qp.data_ptr(), tiles.data_ptr(), out.data_ptr(),
             inv2b2.data_ptr(), ws.data_ptr(), counters.data_ptr(), nq, nk,
             iterations, grid, slots)

@@ -1,9 +1,12 @@
 """k-nearest-neighbour graph construction (exact).
 
-Counterpart of parsenet_tpu/ops/knn.py. The pairwise scores are computed in
-query-row chunks so peak memory is O(chunk * N), and the neighbours are the
-exact top-k (`torch.topk`): the JAX package's `lax.approx_max_k` is a TPU
-primitive, and on other backends it takes this exact path too.
+Counterpart of parsenet_tpu/ops/knn.py. The pairwise scores of all B
+clouds are computed in query-row chunks, one batched product each, so peak
+memory is O(B * chunk * N), and the neighbours are the exact top-k
+(`torch.topk`): the JAX package's `lax.approx_max_k` is a TPU primitive,
+and on other backends it takes this exact path too. `topk_first` is the
+exact top-k in lax.top_k's order, for the spline preprocessing, where
+that order decides which of exactly tied candidates feed a centroid.
 
 Two metrics:
   * `knn`: squared euclidean distance on the feature channels;
@@ -29,6 +32,20 @@ def _row_chunks(n: int, target: int = CHUNK_TARGET) -> int:
     return c
 
 
+def topk_first(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of each row of f32 x, in descending
+    order, equal values in ascending index order: lax.top_k's order, which
+    torch.topk does not promise. Each entry becomes one int64 key, its
+    value's bits made order-preserving (lax.top_k's total order: -0.0 below
+    +0.0) in the high word and n - 1 - index in the low word, so no two
+    keys tie and one torch.topk gives that order, with no host sync."""
+    n = x.shape[-1]
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    low = (n - 1) - torch.arange(n, device=x.device, dtype=torch.int64)
+    return torch.topk(key * (1 << 32) + low, k, dim=-1, sorted=True).indices
+
+
 def _topk_neighbors(neg_dist: torch.Tensor, k1: int, k2: int) -> torch.Tensor:
     idx = torch.topk(neg_dist, k2, dim=-1, sorted=True).indices
     stride = max(k2 // k1, 1)
@@ -39,44 +56,40 @@ def _topk_neighbors(neg_dist: torch.Tensor, k1: int, k2: int) -> torch.Tensor:
 
 @torch.no_grad()
 def knn(x: torch.Tensor, k1: int, k2: Optional[int] = None) -> torch.Tensor:
-    """Batched kNN indices. x: [B, N, C] -> [B, N, k1] int64."""
+    """Batched kNN indices. x: [B, N, C] -> [B, N, k1] int64. Each query-row
+    chunk is one batched product over the B clouds and one topk."""
     k2 = k2 or k1
-    b, n, _ = x.shape
+    n = x.shape[1]
     c = _row_chunks(n)
-    out = []
-    for bi in range(b):
-        xb = x[bi]
-        xx = torch.sum(xb * xb, dim=-1)
-        rows = []
-        for s in range(0, n, c):
-            q = xb[s:s + c]
-            neg = 2.0 * (q @ xb.T)
-            neg = neg - torch.sum(q * q, dim=-1, keepdim=True) - xx[None, :]
-            rows.append(_topk_neighbors(neg, k1, k2))
-        out.append(torch.cat(rows))
-    return torch.stack(out)
+    xx = torch.sum(x * x, dim=-1)[:, None, :]                # [B, 1, N]
+    xt = x.transpose(1, 2)
+    rows = []
+    for s in range(0, n, c):
+        q = x[:, s:s + c]
+        neg = 2.0 * (q @ xt)
+        neg = neg - torch.sum(q * q, dim=-1, keepdim=True) - xx
+        rows.append(_topk_neighbors(neg, k1, k2))
+    return torch.cat(rows, dim=1)
 
 
 @torch.no_grad()
 def knn_points_normals(x: torch.Tensor, k1: int,
                        k2: Optional[int] = None) -> torch.Tensor:
-    """Batched joint point/normal kNN. x: [B, N, 6] -> [B, N, k1] int64."""
+    """Batched joint point/normal kNN. x: [B, N, 6] -> [B, N, k1] int64, one
+    batched product pair and one topk per query-row chunk."""
     k2 = k2 or k1
-    b, n, _ = x.shape
+    n = x.shape[1]
     c = _row_chunks(n)
-    out = []
-    for bi in range(b):
-        p, nrm = x[bi, :, :3], x[bi, :, 3:6]
-        pp = torch.sum(p * p, dim=-1)
-        rows = []
-        for s in range(0, n, c):
-            qp, qn = p[s:s + c], nrm[s:s + c]
-            d_p = (torch.sum(qp * qp, -1, keepdim=True) - 2.0 * (qp @ p.T)
-                   + pp[None, :])
-            d_n = 2.0 - 2.0 * (qn @ nrm.T)
-            rows.append(_topk_neighbors(-(d_p * (1.0 + d_n)), k1, k2))
-        out.append(torch.cat(rows))
-    return torch.stack(out)
+    p, nrm = x[..., :3], x[..., 3:6]
+    pp = torch.sum(p * p, dim=-1)[:, None, :]                # [B, 1, N]
+    pt, nt = p.transpose(1, 2), nrm.transpose(1, 2)
+    rows = []
+    for s in range(0, n, c):
+        qp, qn = p[:, s:s + c], nrm[:, s:s + c]
+        d_p = torch.sum(qp * qp, -1, keepdim=True) - 2.0 * (qp @ pt) + pp
+        d_n = 2.0 - 2.0 * (qn @ nt)
+        rows.append(_topk_neighbors(-(d_p * (1.0 + d_n)), k1, k2))
+    return torch.cat(rows, dim=1)
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

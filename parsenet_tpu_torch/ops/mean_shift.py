@@ -112,20 +112,23 @@ def guard_mean_shift(X: torch.Tensor, quantile: float,
                      max_clusters: int = 49, max_doublings: int = 8,
                      bf16_dots: bool = False,
                      subset: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> MeanShiftResult:
+                     generator: Optional[torch.Generator] = None,
+                     tol: float = 0.0) -> MeanShiftResult:
     """Mean-shift with bandwidth escalation until <= max_clusters clusters.
 
     X: [N, D] unit rows. Each attempt runs all `iterations` in one K1
     launch plus NMS and is the result when accepted. bf16_dots: bf16
     operands in K1's products (the bench's setting; f32 by default).
     subset / generator: the random subset for the bandwidth statistic
-    (see _subset_sqdist).
+    (see _subset_sqdist). tol > 0: every attempt takes K1's early exit
+    (the JAX package's pallas_tol), a 128-row block stopping once an
+    iteration moves none of its rows by more than tol.
     """
     d_sub = _subset_sqdist(X, num_samples, subset, generator)
 
     def full(bw):
-        shifted = mean_shift_iterations(X, bw, iterations, bf16_dots=bf16_dots)
+        shifted = mean_shift_iterations(X, bw, iterations, bf16_dots=bf16_dots,
+                                        tol=tol)
         center_mask, labels, k = nms(shifted, X, bw)
         return shifted, center_mask, labels, k
 

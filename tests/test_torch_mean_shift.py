@@ -63,8 +63,12 @@ def test_k1_wrapper_on_cpu_is_plain(rng):
     ref = kernels.mean_shift_iterations_plain(x, 0.4, 3)
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
     assert kernels.LAUNCHES == before
-    with pytest.raises(ValueError, match="tol"):
-        kernels.mean_shift_iterations(x, 0.4, 3, tol=1e-6)
+    # tol > 0: the plain early exit over the CUDA kernels' 128-row blocks
+    got = kernels.mean_shift_iterations(x, 0.4, 3, tol=1e-6)
+    ref = kernels.mean_shift_iterations_plain(x, 0.4, 3, tol=1e-6,
+                                              exit_rows=kernels.MS_BLOCK_ROWS)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert kernels.LAUNCHES == before
 
 
 def test_k1_plain_matches_pallas_bf16_ragged(rng):

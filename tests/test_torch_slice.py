@@ -112,12 +112,3 @@ def test_reconstruction_matches(slice_runs):
                                    atol=1e-3)
         np.testing.assert_array_equal(np.sort(t.surface_mask.numpy()),
                                       np.sort(np.asarray(rec.surface_mask)))
-
-
-def test_spline_fit_is_next_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tp.reconstruct_shape(np.zeros((64, 3), np.float32),
-                             np.zeros((64, 3), np.float32),
-                             np.zeros(64, np.int64), np.ones(64, np.int64),
-                             uniforms=torch.zeros(tp.COV_SAMPLES),
-                             spline_fit=object(), device="cpu")
