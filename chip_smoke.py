@@ -31,8 +31,13 @@ Phases, one line each (plus detail lines):
         the 8 stream-a embeddings (co-membership >= 0.99, the minimum
         printed, beside plain bf16 against plain f32); 0 iterations give X
         back in both modes without a launch;
-     K2 auction on SIOU-structured and random 50 x 50 costs: identical
-        assignments, every completed one a permutation;
+     K2, both entries (lap_assign: the whole solve_lap, cost to
+        permutation; auction_assign: the auction on a benefit), each in one
+        batched call, on 8 SIOU-structured and 8 random 50 x 50 costs, on
+        4 tied matrices (costs in quarters) at n = 1, 8, 33 and 64, and on
+        the random ones capped at 5 rounds (persons left to the rank
+        fill): identical to the plain versions, every completed assignment
+        a permutation;
      K3 min-sqdist at 10k x 10k, 204,800 x 2,500 (masked) and, batched,
         36 x (700 vs 1,600), the SplineNet training shape:
         |d| <= 1e-6 + 1e-5 |ref|, indices equal wherever the minimum is
@@ -73,7 +78,10 @@ Phases, one line each (plus detail lines):
      configs/quality_floors.json "bench" floors, printed beside the JAX
      package's full-path figures (BENCH_r05.json), shapes/hour, per-stage ms
      from CUDA events, and launches > 0 for the bf16 K1 and K2, 4 of K3 a
-     shape (the slot residual one of them), none for the f32 K1; then the
+     shape (the slot residual one of them), one of K2 a batch (10: one SIOU
+     call a batch), none for the f32 K1; on the first timed batch's 4 SIOU
+     matrices both K2 entries in one call against their plain versions,
+     and its batched SIOU against the one-shape calls, bitwise; then the
      spline-free arm (spline_fit=None, bench.py's BENCH_ABLATE=splines), 2
      timed batches, beside the JAX package's figures of that arm;
   4b. the library's default f32 mean-shift: the first timed batch of
@@ -117,7 +125,12 @@ Phases, one line each (plus detail lines):
      both modes beside tol = 0, with the iterations it runs as a share of
      50 (kernels.mean_shift_exit_counts) and the fixed-count bound scaled by
      that share; the same at the clustered 4,999 and 10,000 rows of phase
-     3, where most row blocks leave early.
+     3, where most row blocks leave early; K2, both entries, on shape 0's
+     SIOU matrix and on the first timed batch's 4 in one call: device and
+     eager time, the rounds, the time a round (one call against a call
+     capped at one round), the barrier, shuffle and redux.sync latencies of
+     a clock64 probe (kernels.auction_latency_probe) and the latency bound,
+     rounds x (one barrier + a 5-step shuffle reduction).
      Times are CUDA events around back-to-back eager calls (`cuda_ms`,
      what the program sees); K2, K3 (each of a shape's three inference
      calls, and the training call), K4 and their yardsticks also get a
@@ -570,6 +583,33 @@ def rounds_to_assign(kernels, hg, benefit):
     return lo
 
 
+def k2_checks(kernels, hg, costs, what, key, max_iter=3000):
+    """Both K2 entries on the cost matrices [B, n, n] in one batched call
+    each, against their plain versions: lap_assign (the whole solve_lap)
+    and auction_assign (on lap_benefit's benefit) must give the plain
+    assignments exactly, and every completed assignment must be a
+    permutation. Returns the checks and the persons left for the rank
+    fill, under keys ending in `key`."""
+    import torch
+    n = costs.shape[-1]
+    args = (hg._EPS0, hg._ESC_EVERY, hg._ESC, max_iter)
+    benefit = hg.lap_benefit(costs)
+    perm_k = kernels.lap_assign(costs, *args)
+    a_k = kernels.auction_assign(benefit, *args)
+    same_lap = bool(torch.equal(perm_k,
+                                kernels.lap_assign_plain(costs, *args)))
+    same_ben = bool(torch.equal(a_k, kernels.auction_assign_plain(benefit,
+                                                                  *args)))
+    perms = all(sorted(r.tolist()) == list(range(n)) for r in perm_k)
+    left = int((a_k < 0).sum())
+    check(same_lap, f"K2 lap_assign identical to lap_assign_plain on {what}")
+    check(same_ben, f"K2 auction_assign identical to auction_assign_plain "
+          f"on {what} ({left} persons left for the rank fill)")
+    check(perms, f"K2 every completed assignment of {what} is a permutation")
+    return {f"K2{key}_identical": same_lap and same_ben,
+            f"K2{key}_permutations": perms, f"K2{key}_rank_fill": left}
+
+
 def main():
     import numpy as np
     import torch
@@ -886,19 +926,23 @@ def main():
             costs.append(1.0 - relaxed_iou(to_one_hot(pred), to_one_hot(gt)))
         costs += [torch.from_numpy(rng.rand(50, 50).astype(np.float32)).to(dev)
                   for _ in range(8)]
-        benefit = hg.lap_benefit(torch.stack(costs))
-        a_k = kernels.auction_assign(benefit, hg._EPS0, hg._ESC_EVERY,
-                                     hg._ESC, 3000)
-        a_p = kernels.auction_assign_plain(benefit, hg._EPS0, hg._ESC_EVERY,
-                                           hg._ESC, 3000)
-        same = bool(torch.equal(a_k, a_p))
-        perms = all(sorted(hg.complete_assignment(a).tolist())
-                    == list(range(50)) for a in a_k)
-        report["K2_identical"] = same
-        check(same, f"K2 assignments identical on {len(costs)} matrices "
-              f"(8 SIOU-structured, 8 random; {int((a_k < 0).sum())} "
-              "persons left for the rank fill)")
-        check(perms, "K2 every completed assignment is a permutation")
+        report.update(k2_checks(kernels, hg, torch.stack(costs), "16 "
+                                "matrices (8 SIOU-structured, 8 random)",
+                                ""))
+        # ragged sizes with exact ties (costs in quarters), and a round cap
+        # that leaves persons to the rank fill
+        rng_k2 = np.random.RandomState(1)
+        for n_r in (1, 8, 33, 64):
+            c_r = torch.from_numpy((rng_k2.randint(0, 3, (4, n_r, n_r)) / 4)
+                                   .astype(np.float32)).to(dev)
+            report.update(k2_checks(kernels, hg, c_r, f"4 tied {n_r} x {n_r} "
+                                    "matrices", f"_n{n_r}"))
+        left = k2_checks(kernels, hg, torch.stack(costs[8:]), "8 random "
+                         "50 x 50 matrices capped at 5 rounds", "_cap5",
+                         max_iter=5)
+        report.update(left)
+        check(left["K2_cap5_rank_fill"] > 0, "K2 at 5 rounds leaves persons "
+              "to the rank fill")
 
         q = torch.from_numpy(pts[0]).to(dev)
         cases = [("10k x 10k", q, torch.from_numpy(pts[1]).to(dev), None)]
@@ -1208,8 +1252,23 @@ def main():
     floors = json.load(open(os.path.join(REPO, "configs",
                                          "quality_floors.json")))["bench"]
 
+    siou_batch = {}   # the SIOU call of stream a's first timed batch
+
     def slice_run():
-        out = stream_a(iters, spline_fit)
+        # keep the arguments of the batch's one SIOU call (it draws
+        # nothing, so keeping them moves no metric)
+        siou, calls = tp.siou_matched_segments, []
+
+        def keep(*args, **kwargs):
+            if len(calls) == warmup:
+                siou_batch.update(args=args, kwargs=kwargs)
+            calls.append(1)
+            return siou(*args, **kwargs)
+        tp.siou_matched_segments = keep
+        try:
+            out = stream_a(iters, spline_fit)
+        finally:
+            tp.siou_matched_segments = siou
         report_arm("slice", "stream a, spline slots", iters, *out,
                    REFERENCE_FULL, "JAX full path")
         launches = out[3]
@@ -1219,6 +1278,27 @@ def main():
         check(launches["K3"] == 4 * shapes, f"K3 launched 4 times a shape, "
               f"the 12 slot residuals in one ({launches['K3']} for "
               f"{shapes} shapes)")
+        # one SIOU call, so one K2 launch, a batch
+        check(launches["K2"] == warmup + iters and len(calls) == warmup
+              + iters, f"K2 launched once a batch ({launches['K2']} for "
+              f"{warmup + iters} batches of {n_batch})")
+        # the first timed batch: both K2 entries on its 4 matrices in one
+        # call, and the batched SIOU against the one-shape calls, bitwise
+        gt_b, lab_b, pp_b, gp_b, w_b = siou_batch["args"]
+        costs = 1.0 - relaxed_iou(to_one_hot(lab_b), to_one_hot(gt_b))
+        siou_batch["costs"] = costs.contiguous()
+        report.update(k2_checks(kernels, hg, siou_batch["costs"],
+                                f"stream a's first timed batch ({n_batch} "
+                                "matrices)", "_stream_a"))
+        seg, prim_i = siou(*siou_batch["args"], **siou_batch["kwargs"])
+        one = [siou(gt_b[b], lab_b[b], pp_b[b], gp_b[b], w_b[b],
+                    **siou_batch["kwargs"]) for b in range(n_batch)]
+        same = all(torch.equal(seg[b], one[b][0])
+                   and torch.equal(prim_i[b], one[b][1])
+                   for b in range(n_batch))
+        report["siou_batched_equals_per_shape"] = same
+        check(same, "SIOU of the batch equals the one-shape calls, bitwise "
+              "(seg_iou " + ", ".join(f"{float(v):.5f}" for v in seg) + ")")
 
     phase(slice_run)
 
@@ -1614,53 +1694,88 @@ def main():
                 "library_ms": None, "tol0_ms": float(np.mean(k0_ms)),
                 "iteration_share": share, "clustered": clus})
 
-        # K2 on a main-path SIOU matrix (shape 0's f32 clustering vs GT)
+        # K2 on a main-path SIOU matrix (shape 0's f32 clustering vs GT),
+        # both entries; and on the 4 matrices of stream a's first timed
+        # batch in one call, as the slice launches it
         lab0 = ms.nms(kernels.mean_shift_iterations(embn, bw, it), embn,
                       bw)[1]
         gt0 = torch.from_numpy(labels[0].astype(np.int64)).to(dev)
-        ben = hg.lap_benefit(1.0 - relaxed_iou(to_one_hot(lab0),
-                                               to_one_hot(gt0)))
-        rounds = rounds_to_assign(kernels, hg, ben)
-        n_pad = 56
-        k2_ops = rounds * 4 * n_pad * n_pad
-        k2_bytes = n_pad * n_pad * 4 + n_pad * 4
-        a_k = kernels.auction_assign(ben, hg._EPS0, hg._ESC_EVERY, hg._ESC,
-                                     3000)
-        a_p = kernels.auction_assign_plain(ben, hg._EPS0, hg._ESC_EVERY,
-                                           hg._ESC, 3000)
-        k2 = lambda: kernels.auction_assign(             # noqa: E731
-            ben, hg._EPS0, hg._ESC_EVERY, hg._ESC, 3000)
-        k_ms = cuda_ms(k2, 20)
-        k_dev = graph_ms(k2, 20)
-        # the launch alone on the padded matrix (the wrapper pads it with
-        # three small PyTorch operations first)
-        bp = kernels._pad_benefit(ben[None] if ben.dim() == 2 else ben)
-        o2 = torch.empty(bp.shape[:2], dtype=torch.int32, device=dev)
-        k_bare = graph_ms(lambda: kernels._launch(
-            "K2", bp.data_ptr(), o2.data_ptr(), bp.shape[0], bp.shape[1],
-            float(hg._EPS0), int(hg._ESC_EVERY), float(hg._ESC),
-            min(3000, kernels.AUCTION_ROUNDS)), 20)
-        p_ms = cuda_ms(lambda: kernels.auction_assign_plain(
-            ben, hg._EPS0, hg._ESC_EVERY, hg._ESC, 3000), 5)
-        bound = 1000.0 * max(k2_ops / PEAK_FP32, k2_bytes / HBM_BYTES_S)
-        print(f"[6 times] K2 56x56 ({rounds} rounds to assign all): kernel "
-              f"{k_ms:.4f} ms eager (the wrapper's padding included), "
-              f"{k_dev:.4f} ms device ({k_bare:.4f} the launch alone); "
-              f"plain {p_ms:.3f} ms, bound "
-              f"{bound:.6f} ms "
-              f"({'operations' if k2_ops / PEAK_FP32 > k2_bytes / HBM_BYTES_S else 'bytes'})",
-              flush=True)
-        entries.append({
-            "name": "auction_assign", "route": "cuda",
-            "source": "parsenet_tpu_torch/csrc/auction_assign.cu",
-            "replaces": "parsenet_tpu/ops/pallas_kernels.py:345",
-            "launches": launches["K2"],
-            "max_abs_err": float((a_k - a_p).abs().max()),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": ("operations" if k2_ops / PEAK_FP32
-                         > k2_bytes / HBM_BYTES_S else "bytes"),
-            "library_ms": None, "device_ms": k_dev,
-            "launch_alone_device_ms": k_bare, "id": "K2"})
+        cost0 = (1.0 - relaxed_iou(to_one_hot(lab0), to_one_hot(gt0)))
+        cost0 = cost0.contiguous()
+        ben0 = hg.lap_benefit(cost0)
+        cost4 = siou_batch.get("costs")
+        if cost4 is None:   # phase 4 failed: shape 0's matrix four times
+            cost4 = cost0.expand(n_batch, -1, -1).contiguous()
+        ben4 = hg.lap_benefit(cost4)
+        n_k2 = cost0.shape[-1]
+        n_pad = max(8, -(-n_k2 // 8) * 8)
+        rounds = rounds_to_assign(kernels, hg, ben0)
+        rounds4 = max(rounds_to_assign(kernels, hg, ben4[b])
+                      for b in range(ben4.shape[0]))
+        # each round's bidders: the persons still unassigned after the
+        # rounds before it (the plain version; padding persons aside)
+        bidders = [int((kernels.auction_assign_plain(
+            ben0, hg._EPS0, hg._ESC_EVERY, hg._ESC, r) < 0).sum())
+            for r in range(rounds)]
+        report["K2_bidders_per_round"] = bidders
+        print(f"[6 times] K2 shape 0: bidders of rounds 1-{rounds}: "
+              + ", ".join(map(str, bidders)), flush=True)
+        probe = kernels.auction_latency_probe(dev, 32 * (n_pad // 2))
+        ghz = probe["clock_ghz"]
+        # the least a round takes: one block barrier (at the kernel's block
+        # of n_pad / 2 warps) and one 5-step shuffle reduction of a row
+        round_floor_ms = (probe["barrier_cycles"]
+                          + 5 * probe["shuffle_step_cycles"]) / ghz * 1e-6
+        print(f"[6 times] K2 latency probe ({32 * (n_pad // 2)} threads, "
+              f"{ghz:.3f} GHz): barrier {probe['barrier_cycles']:.1f} "
+              f"cycles, shuffle step {probe['shuffle_step_cycles']:.1f}, "
+              f"redux.sync {probe['redux_cycles']:.1f}; a round's floor "
+              f"{round_floor_ms * 1e3:.4f} us", flush=True)
+        report["K2_probe"] = probe
+        args = (hg._EPS0, hg._ESC_EVERY, hg._ESC)
+        for ename, kname, fn, plain, x0, x4 in (
+                ("lap_assign", "K2", kernels.lap_assign,
+                 kernels.lap_assign_plain, cost0, cost4),
+                ("auction_assign", "K2_benefit", kernels.auction_assign,
+                 kernels.auction_assign_plain, ben0, ben4)):
+            err = max(float((fn(x, *args, 3000) - plain(x, *args, 3000))
+                            .abs().max()) for x in (x0, x4))
+            k_ms = cuda_ms(lambda: fn(x0, *args, 3000), 20)
+            k_dev = graph_ms(lambda: fn(x0, *args, 3000), 20)
+            k4_ms = cuda_ms(lambda: fn(x4, *args, 3000), 20)
+            k4_dev = graph_ms(lambda: fn(x4, *args, 3000), 20)
+            one_dev = graph_ms(lambda: fn(x0, *args, 1), 20)
+            round_ms = (k_dev - one_dev) / max(rounds - 1, 1)
+            p_ms = cuda_ms(lambda: plain(x0, *args, 3000), 5)
+            lat_bound = rounds * round_floor_ms
+            # the contract's bound: each input byte read once, each output
+            # written once; a round's operations on the padded matrix
+            k2_ops = rounds * 4 * n_pad * n_pad
+            k2_bytes = n_k2 * n_k2 * 4 + n_k2 * 4
+            bound = 1000.0 * max(k2_ops / PEAK_FP32, k2_bytes / HBM_BYTES_S)
+            by = ("operations" if k2_ops / PEAK_FP32 > k2_bytes / HBM_BYTES_S
+                  else "bytes")
+            print(f"[6 times] K2 {ename} {n_k2}x{n_k2} ({rounds} rounds to "
+                  f"assign all): device {k_dev:.4f} ms, eager {k_ms:.4f} ms; "
+                  f"{x4.shape[0]} matrices in one call ({rounds4} rounds): "
+                  f"device {k4_dev:.4f} ms, eager {k4_ms:.4f} ms; one round "
+                  f"{one_dev:.4f} ms device, so {round_ms * 1e3:.4f} us a "
+                  f"round against a floor of {round_floor_ms * 1e3:.4f}; "
+                  f"latency bound {lat_bound:.4f} ms ({rounds} x the "
+                  f"floor); plain {p_ms:.3f} ms; {by} bound {bound:.7f} ms "
+                  "(not binding)", flush=True)
+            entries.append({
+                "name": ename, "route": "cuda",
+                "source": "parsenet_tpu_torch/csrc/auction_assign.cu",
+                "replaces": "parsenet_tpu/ops/pallas_kernels.py:345",
+                "launches": launches[kname], "max_abs_err": err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": None, "device_ms": k_dev,
+                "batch_ms": k4_ms, "batch_device_ms": k4_dev,
+                "batch": int(x4.shape[0]), "batch_rounds": rounds4,
+                "rounds": rounds, "one_round_device_ms": one_dev,
+                "round_ms": round_ms, "round_floor_ms": round_floor_ms,
+                "latency_bound_ms": lat_bound, "id": kname})
 
         # K3: one shape's four calls (trim, points->samples,
         # samples->points, and the 12 spline slots' residual in one batch)

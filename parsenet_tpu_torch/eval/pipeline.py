@@ -4,7 +4,8 @@ Counterpart of parsenet_tpu/eval/pipeline.py:
 
 * `predict_segmentation`: network forward, mean-shift clustering (quantile
   0.015, 50 iterations, K1), per-point types, SIOU over LAP-matched
-  segments (K2). Batched: the network runs on [B, N], clustering per shape.
+  segments (K2). Batched: the network runs on [B, N], clustering per shape,
+  then SIOU for the whole batch (one K2 launch for its B matrices).
 * `reconstruct_shape`: hard one-hot membership, per-segment type by vote,
   all four geometric fits per segment, surface grids; with a `spline_fit`
   (fitting.spline_apply.build_spline_fit) the 12 largest spline segments
@@ -96,7 +97,7 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
         emb, prim_logp = model(torch.cat([pts, nrm], dim=-1))
         pred_prim = torch.argmax(prim_logp, dim=-1)
         embn = emb / (torch.linalg.norm(emb, dim=-1, keepdim=True) + 1e-12)
-    labels, seg_ious, prim_ious, ks = [], [], [], []
+    labels, ks = [], []
     for b in range(pts.shape[0]):
         with timer("mean_shift"):
             ms = guard_mean_shift(
@@ -104,17 +105,14 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
                 iterations=iterations, bf16_dots=ms_bf16,
                 subset=None if subsets is None else subsets[b],
                 generator=generator)
-        with timer("siou"):
-            seg_iou, prim_iou = siou_matched_segments(
-                gt_labels[b], ms.labels, pred_prim[b], gt_prim[b],
-                to_one_hot(ms.labels))
         labels.append(ms.labels)
-        seg_ious.append(seg_iou)
-        prim_ious.append(prim_iou)
         ks.append(ms.num_clusters)
-    return SegmentationPrediction(torch.stack(labels), pred_prim, emb,
-                                  torch.stack(seg_ious),
-                                  torch.stack(prim_ious), ks)
+    labels = torch.stack(labels)
+    with timer("siou"):   # draws nothing: one LAP launch for the batch
+        seg_iou, prim_iou = siou_matched_segments(
+            gt_labels, labels, pred_prim, gt_prim, to_one_hot(labels))
+    return SegmentationPrediction(labels, pred_prim, emb, seg_iou, prim_iou,
+                                  ks)
 
 
 class Reconstruction(NamedTuple):

@@ -9,7 +9,11 @@ CUDA C++ source for sm_90a under `csrc/`:
                           (wgmma; the mode the inference bench runs)
   K1_exit, K1tc_exit      <- the same with tol > 0 (early_exit=True): each
                           kernel's exit instantiation
-  K2 auction_assign.cu  <- auction_assign_pallas
+  K2 auction_assign.cu  <- auction_assign_pallas with solve_lap's benefit
+                          and completion around it (lap_assign: cost ->
+                          permutation, one launch for B matrices)
+  K2_benefit            <- auction_assign_pallas alone (auction_assign, on
+                          a prepared benefit): the same kernel's other entry
   K3 min_sqdist.cu      <- min_sqdist_with_idx_pallas (batched)
   K4 min_sqdist_bwd.cu  <- the backward of min_sqdist_fused's custom VJP
   K5 ms_iterations_tf32.cu <- mean_shift_step_pallas, K1 f32's kernel
@@ -63,7 +67,10 @@ ENTRIES = {
                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "K1tc_exit": ("K1tc", "ms_iterations_tc_exit",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "K2": ("K2", "auction_assign", [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
+    "K2": ("K2", "lap_assign",
+           [_P, _P, _I, _I, _F, _I, _F, _I, _F, _F, _F, _P]),
+    "K2_benefit": ("K2", "auction_assign",
+                   [_P, _P, _I, _I, _F, _I, _F, _I, _P]),
     "K3": ("K3", "min_sqdist_idx",
            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "K4": ("K4", "min_sqdist_bwd",
@@ -529,6 +536,37 @@ def mean_shift_step(m: torch.Tensor, x: torch.Tensor,
 AUCTION_NEG = -1e9
 AUCTION_ROUNDS = 512  # round cap, as the TPU kernel's static trip count
 AUCTION_MAX_N = 64    # the kernel's largest padded size
+LAP_TIE = 1e-7        # column-linear tie-breaker slope (exactness-neutral)
+LAP_BETA = 2e-5       # diagonal parking bonus for uniform rows
+LAP_UNIFORM = 1e-6    # a row whose span is at most this is uniform
+
+
+def lap_benefit(cost: torch.Tensor) -> torch.Tensor:
+    """Auction benefit of a cost matrix [..., n, n]: -(cost + LAP_TIE j),
+    plus LAP_BETA on the diagonal of uniform rows (see ops/hungarian.py)."""
+    n = cost.shape[-1]
+    cost = cost.to(torch.float32)
+    row_span = torch.amax(cost, dim=-1) - torch.amin(cost, dim=-1)
+    uniform = (row_span <= LAP_UNIFORM).to(torch.float32)
+    tie = LAP_TIE * torch.arange(n, dtype=torch.float32, device=cost.device)
+    eye = torch.eye(n, dtype=torch.float32, device=cost.device)
+    park = LAP_BETA * uniform[..., :, None] * eye
+    return -(cost + tie) + park
+
+
+def complete_assignment(assignment: torch.Tensor) -> torch.Tensor:
+    """Rows with -1 take the leftover columns, r-th such row -> r-th free
+    column. assignment [n] int -> permutation [n] int32."""
+    n = assignment.shape[-1]
+    a = assignment.to(torch.int64)
+    assigned = a >= 0
+    col_taken = torch.zeros(n + 1, dtype=torch.bool, device=a.device)
+    col_taken[torch.where(assigned, a, n)] = True
+    ar = torch.arange(n, device=a.device)
+    free_cols = torch.sort(torch.where(col_taken[:n], n, ar)).values
+    fill_rank = torch.cumsum((~assigned).to(torch.int64), dim=0) - 1
+    fill = free_cols[torch.clamp(fill_rank, 0, n - 1)]
+    return torch.where(assigned, a, fill).to(torch.int32)
 
 
 def _pad_benefit(benefit: torch.Tensor) -> torch.Tensor:
@@ -539,7 +577,6 @@ def _pad_benefit(benefit: torch.Tensor) -> torch.Tensor:
     out = torch.full((b, n_pad, n_pad), -1e6, dtype=torch.float32,
                      device=benefit.device)
     out[:, :n, :n] = benefit
-    # a scalar fill, no host tensor: the padding can be captured in a graph
     torch.diagonal(out, dim1=1, dim2=2)[:, n:].fill_(-1e6 + 1.0)
     return out
 
@@ -588,31 +625,93 @@ def auction_assign_plain(benefit: torch.Tensor, eps0: float, esc_every: int,
     return out[0] if squeeze else out
 
 
+def lap_assign_plain(cost: torch.Tensor, eps0: float, esc_every: int,
+                     esc: float, max_iter: int) -> torch.Tensor:
+    """solve_lap in PyTorch ops: lap_benefit, auction_assign_plain and
+    complete_assignment of each matrix. cost [n, n] or [B, n, n] ->
+    col_of_row [n] / [B, n] int32, each a permutation."""
+    squeeze = cost.dim() == 2
+    c3 = cost[None] if squeeze else cost
+    a = auction_assign_plain(lap_benefit(c3), eps0, esc_every, esc, max_iter)
+    out = torch.stack([complete_assignment(row) for row in a])
+    return out[0] if squeeze else out
+
+
+def _auction_check(name: str, x: torch.Tensor, esc_every: int) -> None:
+    """What K2's entries take: f32 [n, n] or [B, n, n], 1 <= n <= 64, B >= 1,
+    esc_every > 0."""
+    if (x.dim() not in (2, 3) or x.shape[-1] != x.shape[-2]
+            or x.dtype != torch.float32):
+        raise ValueError(f"{name}: expected float32 [n, n] or [B, n, n], got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n = x.shape[-1]
+    if not 1 <= n <= AUCTION_MAX_N or x.numel() == 0 or int(esc_every) <= 0:
+        raise ValueError(f"{name}: kernel takes 1 <= n <= {AUCTION_MAX_N}, a "
+                         f"non-empty batch and esc_every > 0, got "
+                         f"{tuple(x.shape)}, esc_every {esc_every}")
+
+
+def _auction_launch(name: str, x: torch.Tensor, eps0: float, esc_every: int,
+                    esc: float, max_iter: int, *consts) -> torch.Tensor:
+    squeeze = x.dim() == 2
+    x3 = (x[None] if squeeze else x).contiguous()
+    bsz, n, _ = x3.shape
+    out = torch.empty((bsz, n), dtype=torch.int32, device=x3.device)
+    _launch(name, x3.data_ptr(), out.data_ptr(), bsz, n, float(eps0),
+            int(esc_every), float(esc), min(int(max_iter), AUCTION_ROUNDS),
+            *consts)
+    return out[0] if squeeze else out
+
+
 def auction_assign(benefit: torch.Tensor, eps0: float, esc_every: int,
                    esc: float, max_iter: int) -> torch.Tensor:
-    """K2. Forward auction on prepared benefit matrices [n, n] or [B, n, n]
-    (higher = better), one block per matrix, min(max_iter, 512) rounds.
-    Returns obj_of_person int32 (-1 where a person is left unassigned)."""
+    """K2_benefit. Forward auction on prepared benefit matrices [n, n] or
+    [B, n, n] (higher = better), one block per matrix, padded inside the
+    kernel, min(max_iter, 512) rounds. Returns obj_of_person int32 (-1 where
+    a person is left unassigned)."""
+    if benefit.device.type != "cpu":
+        _auction_check("auction_assign", benefit, esc_every)
     if not _on_cuda("auction_assign", benefit):
         return auction_assign_plain(benefit, eps0, esc_every, esc, max_iter)
-    squeeze = benefit.dim() == 2
-    b3 = benefit[None] if squeeze else benefit
-    if (b3.dim() != 3 or b3.shape[1] != b3.shape[2]
-            or b3.dtype != torch.float32):
-        raise ValueError(f"auction_assign: expected f32 [B, n, n], got "
-                         f"{tuple(benefit.shape)} {benefit.dtype}")
-    bp = _pad_benefit(b3).contiguous()
-    bsz, n_pad, _ = bp.shape
-    if n_pad > AUCTION_MAX_N or int(esc_every) <= 0:
-        raise ValueError(f"auction_assign: kernel takes n_pad <= "
-                         f"{AUCTION_MAX_N} and esc_every > 0, got n_pad "
-                         f"{n_pad}, esc_every {esc_every}")
-    out = torch.empty((bsz, n_pad), dtype=torch.int32, device=bp.device)
-    _launch("K2", bp.data_ptr(), out.data_ptr(), bsz, n_pad, float(eps0),
-            int(esc_every), float(esc),
-            min(int(max_iter), AUCTION_ROUNDS))
-    out = out[:, :benefit.shape[-1]]
-    return out[0] if squeeze else out
+    return _auction_launch("K2_benefit", benefit, eps0, esc_every, esc,
+                           max_iter)
+
+
+def lap_assign(cost: torch.Tensor, eps0: float, esc_every: int, esc: float,
+               max_iter: int) -> torch.Tensor:
+    """K2. The whole solve_lap of cost matrices [n, n] or [B, n, n] in one
+    launch, one block per matrix: lap_benefit, the auction
+    (min(max_iter, 512) rounds) and the rank fill. Returns col_of_row
+    int32, each row a permutation."""
+    if cost.device.type != "cpu":
+        _auction_check("lap_assign", cost, esc_every)
+    if not _on_cuda("lap_assign", cost):
+        return lap_assign_plain(cost, eps0, esc_every, esc, max_iter)
+    return _auction_launch("K2", cost, eps0, esc_every, esc, max_iter,
+                           LAP_TIE, LAP_BETA, LAP_UNIFORM)
+
+
+def auction_latency_probe(device, threads: int, iters: int = 4096) -> dict:
+    """The latencies K2's bound is made of, by `auction_probe` (clock64 in
+    one block of `threads` on `device`): cycles per barrier, per dependent
+    shuffle step (shfl + fmax) and per dependent redux.sync, and the SM
+    clock in GHz over the probe (cycles over globaltimer ns). Counted in no
+    LAUNCHES entry: it is a measurement, not a kernel of a path."""
+    if "K2" not in _LIBS:
+        build_kernels()
+    fn = _LIBS["K2"].auction_probe
+    fn.argtypes = [_P, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(6, dtype=torch.int64, device=device)
+    rc = fn(out.data_ptr(), int(threads), int(iters),
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kernels: auction_probe failed with cudaError "
+                           f"{rc}")
+    c = out.tolist()
+    return {"barrier_cycles": c[0] / iters,
+            "shuffle_step_cycles": c[1] / iters,
+            "redux_cycles": c[2] / iters, "clock_ghz": c[3] / c[4]}
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 time by kernel and by named part of the spline path, and the device's idle
 share of the wall time.
 
-    python3 scripts/torch_profile_stream_a.py [--batches 3]
+    python3 scripts/torch_profile_stream_a.py [--batches 3] [--root DIR]
 
 Runs bench.py's stream a (make_shape_batch(RandomState(7), ...),
 normalize_points, batches of 4 at 10,000 points, bf16 mean-shift, the
@@ -10,9 +10,12 @@ shipped params and SplineNets) through eval.pipeline.run_batch: the first
 batches warm up, the last runs under torch.profiler. Prints the 30 rows of
 the largest device time, then each named range (the preprocessing steps,
 standardize and its eigh3, the kNN of the DGCNN and the SplineNets
-together, the EdgeConvs, the surface sampling) with its host time and the
-device span of its kernels, and the idle share: 1 - (union of the kernels'
-intervals) / wall.
+together, the EdgeConvs, the surface sampling; the SIOU stage's one-hots,
+relaxed IoU, type votes and LAP, and the LAP's own steps where the tree has
+them as functions) with its host time and the device span of its kernels,
+and the idle share: 1 - (union of the kernels' intervals) / wall. --root
+profiles another checkout of the port (an older tree, for a before/after
+in one call); a range whose function that tree lacks is left out.
 """
 import argparse
 import os
@@ -24,20 +27,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-
-from parsenet_tpu_torch.core.guards import entry_device  # noqa: E402
-from parsenet_tpu_torch.data.abc import normalize_points  # noqa: E402
-from parsenet_tpu_torch.data.synthetic import make_shape_batch  # noqa: E402
-from parsenet_tpu_torch.eval import pipeline as tp  # noqa: E402
-from parsenet_tpu_torch.fitting import spline_apply as sa  # noqa: E402
-from parsenet_tpu_torch.models import splinenet as sn  # noqa: E402
-from parsenet_tpu_torch.models.dgcnn import (  # noqa: E402
-    load_primitives_embedding)
-from parsenet_tpu_torch.ops import knn, linalg  # noqa: E402
-from parsenet_tpu_torch.ops import preprocess as pp  # noqa: E402
-from parsenet_tpu_torch.ops import standardize as st  # noqa: E402
-
 B, N = 4, 10000
 
 
@@ -73,8 +62,33 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=3,
                     help="batches run; the last one is profiled")
+    ap.add_argument("--root", default=REPO,
+                    help="checkout whose parsenet_tpu_torch is profiled")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    from parsenet_tpu_torch.core.guards import entry_device
+    from parsenet_tpu_torch.data.abc import normalize_points
+    from parsenet_tpu_torch.data.synthetic import make_shape_batch
+    from parsenet_tpu_torch.eval import pipeline as tp
+    from parsenet_tpu_torch.fitting import spline_apply as sa
+    from parsenet_tpu_torch.models import splinenet as sn
+    from parsenet_tpu_torch.models.dgcnn import load_primitives_embedding
+    from parsenet_tpu_torch.ops import hungarian as hg
+    from parsenet_tpu_torch.ops import knn, linalg
+    from parsenet_tpu_torch.ops import preprocess as pp
+    from parsenet_tpu_torch.ops import segmentation as seg
+    from parsenet_tpu_torch.ops import standardize as st
+    assert tp.__file__.startswith(os.path.abspath(args.root)), tp.__file__
     dev = entry_device("cuda")
+    for owner, attr in ((tp, "siou_matched_segments"), (seg, "to_one_hot"),
+                        (seg, "relaxed_iou"),
+                        (seg, "primitive_type_per_segment"),
+                        (seg, "solve_lap"), (hg, "lap_benefit"),
+                        (hg, "auction_assign"), (hg, "complete_assignment"),
+                        (hg, "lap_assign")):
+        if attr in owner.__dict__:   # as the tree's solve_lap calls them
+            name_range(owner, attr,
+                       f"R {owner.__name__.split('.')[-1]}.{attr}")
     for owner, attr in ((pp, "pack_segment"),
                         (pp, "statistical_inliers_packed"), (pp, "repack"),
                         (pp, "nn_centroid_upsample"), (pp, "draw_fixed"),
@@ -89,7 +103,7 @@ def main() -> int:
         pts[i], normals[i], _, _ = normalize_points(pts[i], normals[i])
     pts, normals = pts.astype(np.float32), normals.astype(np.float32)
     model = load_primitives_embedding(
-        os.path.join(REPO, "params", "parsenet_e2e.npz"), device=dev)
+        os.path.join(args.root, "params", "parsenet_e2e.npz"), device=dev)
     fit = sa.build_spline_fit(device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
