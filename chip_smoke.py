@@ -19,7 +19,11 @@ Phases, one line each (plus detail lines):
         embedding and its bandwidth, on ms_plan's grid (every SM, partial
         sums exchanged) and on one block per 128 rows (no exchange): max
         |d| from the plain f32 version <= 1e-5 after 1 iteration and <= 1e-3
-        after 50, the same NMS clustering (cluster numbering aside); the
+        after 50, the same NMS clustering (cluster numbering aside); at
+        the e2e trainer's escalation attempts, its first 8,000 rows for 5
+        iterations at its bandwidth and at the e2e loss's (quantile 0.025
+        of 2,048 rows), max |d| <= 1e-5 after 1 and <= 1e-3 after 5, and
+        the same NMS clustering; the
         same max |d| limits on both grids for clustered rows at N = 100,
         1,000 (D = 64) and 4,999; after 50 iterations on each of 8 stream-a
         embeddings at its own bandwidth, NMS co-membership >= 0.999, or,
@@ -71,6 +75,14 @@ Phases, one line each (plus detail lines):
         exit must move m by more than those limits somewhere; each of these
         launches runs under a watchdog, and one that does not return within
         60 s fails the run (a hung exchange);
+  3b. K3 and K4 at the e2e loss's shapes: the 4 spline slots' chamfer,
+     8,000 points of a stream-a shape against 900 surface samples a slot,
+     and its masked reverse with slot 3's GT segment empty (every target
+     masked): K3 within the limits above, 1e30 and index 0 on the masked
+     slot; K4 on those argmins with a random incoming gradient and, on
+     the slot chamfer, with the loss's (mean over the GT segment's points,
+     0 on the others), dq and dx bitwise equal to the plain version and
+     finite (the masked slot too);
   4. slice: bench.py's stream "a" (seed 7, 2 warm-up + 8 timed batches of 4,
      10k points, bf16 mean-shift, the spline slots from the shipped
      params/{open,closed}_splinenet.npz, shipped params) through
@@ -81,9 +93,15 @@ Phases, one line each (plus detail lines):
      shape (the slot residual one of them), one of K2 a batch (10: one SIOU
      call a batch), none for the f32 K1; on the first timed batch's 4 SIOU
      matrices both K2 entries in one call against their plain versions,
-     and its batched SIOU against the one-shape calls, bitwise; then the
-     spline-free arm (spline_fit=None, bench.py's BENCH_ABLATE=splines), 2
-     timed batches, beside the JAX package's figures of that arm;
+     and its batched SIOU against the one-shape calls, bitwise; the
+     coverage cdf of the first timed shape's trimmed area weights built 20
+     times with a 1-d torch.cumsum and with fixed_order_cdf (the one
+     protocol_coverage takes), the distinct results of each counted (the
+     latter must give one); stream a once more from the same generator
+     state, every per-shape metric (p_cov, sk_1, sk_2 included) equal bit
+     for bit; then the spline-free arm (spline_fit=None, bench.py's
+     BENCH_ABLATE=splines), 2 timed batches, beside the JAX package's
+     figures of that arm;
   4b. the library's default f32 mean-shift: the first timed batch of
      stream a through run_batch(..., ms_bf16=False) and, beside it, with
      ms_bf16=True (the second of two runs each, one generator seed): ms a
@@ -113,6 +131,31 @@ Phases, one line each (plus detail lines):
          batches;
      (b)-(d) run twice each from the same seed and data: the losses of
          every step and the validation chamfer must be equal;
+  5e. e2e training (train_e2e), from params/parsenet_e2e.npz and the
+     shipped decoders:
+     (a) parity: two make_e2e_step steps on one shape of 2,048 points (k
+         80, accum 1, lr 1e-4; E2E_PARITY, the draws parity_draws) within
+         E2E_RTOL of the JAX package's (E2E_REFERENCE, from
+         scripts/e2e_train_reference.py), clusters equal; the card's
+         step-1 gradient of every tensor at cosine >= 0.99 with the plain
+         path's on the machine's CPU, where both found as many clusters
+         (else the skip is printed);
+     (b) configs/config_parsenet_e2e.yml at full width through
+         run_training: synthetic shapes of 10,000 points, 8,000 a step,
+         batch 1, accum 5, k 80, lr 1e-4; 1 warm-up + 3 timed steps and
+         the validation (eval_step on a fixed sample of 2 shapes): ms a
+         step, shapes/s, stage ms (CUDA events), every step's metrics,
+         peak memory; every value finite, grad_ok 1 at every step, K1
+         (f32), K2, K3 and K4 launched; run twice from one seed, whether
+         every metric repeats printed;
+  5s. segmentation training (train_seg): (a) two parity steps from
+     params/parsenet_e2e.npz, 2 micro-batches of 2 shapes of 1,024 points
+     (SEG_PARITY), within SEG_RTOL of SEG_REFERENCE; (b)
+     configs/config_parsenet_normals.yml at full width through
+     run_training from the seeded initialisation: 7,000 of 10,000 points,
+     batch 8, accum 3, k 80, lr 0.01, 1 warm-up + 3 timed steps, the
+     validation on 8 fixed shapes; the same prints and checks as 5e (b)
+     but the launches (the network runs no kernel of the port);
   6. kernel times at main-path shapes beside the plain version, the bound
      and the library yardstick where PyTorch computes the same
      (sdpa_mean_shift for K1 and, one step, K5, torch.cdist for K3,
@@ -125,7 +168,10 @@ Phases, one line each (plus detail lines):
      both modes beside tol = 0, with the iterations it runs as a share of
      50 (kernels.mean_shift_exit_counts) and the fixed-count bound scaled by
      that share; the same at the clustered 4,999 and 10,000 rows of phase
-     3, where most row blocks leave early; K2, both entries, on shape 0's
+     3, where most row blocks leave early; K1 f32 at the e2e attempts'
+     8,000 x 128 x 5 iterations; K3 and K4 at the e2e slot chamfer (K4
+     with the loss's gradient, and its longest chain);
+     K2, both entries, on shape 0's
      SIOU matrix and on the first timed batch's 4 in one call: device and
      eager time, the rounds, the time a round (one call against a call
      capped at one round), the barrier, shuffle and redux.sync latencies of
@@ -140,6 +186,7 @@ The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Any failed check exits non-zero without the
 ok line; without a CUDA device it exits 1 at once.
 """
+import contextlib
 import json
 import os
 import re
@@ -234,6 +281,56 @@ K1TC_TOL_1, K1TC_TOL_50 = 1e-4, 1e-2
 # reordered version's co-membership: NMS takes argmaxes over rows that
 # converged to one mode, which last-bit differences decide.
 K1F_TOL_1, K1F_TOL_50, K1F_AGREE = 1e-5, 1e-3, 0.999
+
+# The trainers' parity steps (phases 7a and 8a): sizes, seeds and lr; the
+# shapes are make_shape_batch(RandomState(seed), shapes, points),
+# mean-centred, from params/parsenet_e2e.npz, and every shape of a step
+# takes the triplet draws parity_draws(seed)
+E2E_PARITY = {"seed": 11, "shapes": 1, "points": 2048, "k": 80, "lr": 1e-4}
+SEG_PARITY = {"seed": 12, "shapes": 4, "points": 1024, "k": 80, "lr": 0.01,
+              "accum": 2}
+
+# two steps of each trainer in the JAX package on the CPU (lr as above),
+# the output of `python scripts/e2e_train_reference.py` (its grad_ok 1 at
+# every step): each step's metrics before its update
+E2E_REFERENCE = [
+    {"clusters": 8.0, "embed_loss": 0.4991939663887024, "geom_loss":
+     0.0403452143073082, "prim_iou": 0.625, "prim_loss": 1.4598302841186523,
+     "res_loss": 0.042409975081682205, "seg_iou": 0.5129479169845581,
+     "spline_loss": 0.45851245522499084},
+    {"clusters": 9.0, "embed_loss": 0.4978553056716919, "geom_loss":
+     0.06925144046545029, "prim_iou": 0.6666666865348816, "prim_loss":
+     1.4467382431030273, "res_loss": 0.05119125545024872, "seg_iou":
+     0.48855698108673096, "spline_loss": 0.15070897340774536}]
+SEG_REFERENCE = [
+    {"embed_loss": 0.6023057699203491, "miou": 0.558760404586792, "prim_loss":
+     1.519356369972229},
+    {"embed_loss": 0.5503126978874207, "miou": 0.5884276628494263, "prim_loss":
+     1.1674134731292725}]
+# Relative tolerance of each step's metrics (step 1, step 2), of at least
+# 1e-3 absolute. The port's plain path on the CPU came within 1.3e-4 of
+# the JAX package at step 1 (spline_loss) and 9.7e-4 at step 2 (seg_iou,
+# after Adam's first update, which moves every weight by lr whatever its
+# gradient's size). clusters differ by one cluster at least, so they must
+# be equal.
+E2E_RTOL = (2e-3, 1e-2)
+SEG_RTOL = (1e-3, 5e-3)
+# The card's e2e step-1 gradient of each tensor against the port's plain
+# path on the CPU, by cosine
+E2E_GRAD_COS = 0.99
+
+
+def parity_draws(seed):
+    """The triplet loss's uniforms of one parity shape: (u_points [S_MAX,
+    P_SAMPLES], u_pairs [N_PAIRS, 2]) f32 from numpy's RandomState(seed +
+    100); scripts/e2e_train_reference.py hands the same to the JAX
+    package."""
+    import numpy as np
+    from parsenet_tpu_torch.losses.embedding import N_PAIRS, P_SAMPLES, S_MAX
+    rs = np.random.RandomState(seed + 100)
+    return (rs.rand(S_MAX, P_SAMPLES).astype(np.float32),
+            rs.rand(N_PAIRS, 2).astype(np.float32))
+
 
 FAILURES = []
 
@@ -810,6 +907,35 @@ def main():
                   f"K1 f32 {x_tag}, "
                   f"{'one block per 128 rows' if one_block else 'ms_plan grid'}"
                   f": NMS clustering identical ({k_lab.max() + 1} clusters)")
+        # the e2e trainer's escalation attempts: 8,000 x 128 for 5
+        # iterations (another grid and exchange split, the last row block
+        # half full), at stream a's bandwidth and at the e2e loss's
+        # (quantile 0.025 of a 2,048-row subset); 5 iterations are held to
+        # K1F_TOL_50, the NMS clustering must be identical
+        x8 = embn[:8000].contiguous()
+        g8 = torch.Generator(device=dev)
+        g8.manual_seed(8)
+        bw8 = ms._initial_bandwidth(ms._subset_sqdist(x8, 2048,
+                                                      generator=g8), 0.025)
+        print(f"  K1 f32 at 8000 x 128 (grid, slots) "
+              f"{kernels.ms_plan(8000, sms, kernels.MS_TF32_TILE)}; "
+              f"bandwidths {float(bw):.6f}, {float(bw8):.6f}", flush=True)
+        e2e_err = {}
+        for b8 in (bw, bw8):
+            for one_block in (False, True):
+                x_tag = f"e2e attempts 8000 x 128 at bw {float(b8):.4f}"
+                errs, k_out, p_out = k1f_checks(x_tag, x8, b8, one_block,
+                                                its=(1, 5))
+                for it, e in errs.items():
+                    e2e_err[it] = max(e2e_err.get(it, 0.0), e)
+                k_lab = ms.nms(k_out, x8, b8)[1].cpu().numpy()
+                p_lab = ms.nms(p_out, x8, b8)[1].cpu().numpy()
+                grid = "one block per 128 rows" if one_block else "ms_plan"
+                check(np.array_equal(canonical(k_lab), canonical(p_lab)),
+                      f"K1 f32 {x_tag}, {grid}, 5 it: NMS clustering "
+                      f"identical ({k_lab.max() + 1} clusters)")
+        report["K1_f32_e2e_max_abs_err"] = e2e_err[5]
+        report["K1_f32_e2e_max_abs_err_1"] = e2e_err[1]
         for bf16 in (False, True):   # no iteration: X back, no launch
             before = dict(kernels.LAUNCHES)
             same = bool(torch.equal(kernels.mean_shift_iterations(
@@ -1182,6 +1308,76 @@ def main():
 
     phase(kernel_checks)
 
+    # ---- 3b. K3 and K4 at the e2e loss's shapes: the 4 spline slots'
+    # chamfer (8,000 points of a shape against each slot's 900 surface
+    # samples) and its masked reverse, slot 3's GT segment empty
+    def e2e_kernel_checks():
+        g3 = torch.Generator(device=dev)
+        g3.manual_seed(6)
+        p8 = torch.from_numpy(pts[0][:8000]).to(dev)
+        seg8 = torch.from_numpy(labels[0][:8000]).to(dev)
+        segs = torch.unique(seg8)[:4]
+        surf = []
+        for s_i in range(4):
+            own = p8[seg8 == segs[s_i % segs.numel()]]
+            pick = torch.randint(0, own.shape[0], (900,), device=dev,
+                                 generator=g3)
+            surf.append(own[pick] + 0.01 * torch.randn(
+                900, 3, device=dev, generator=g3))
+        xe = torch.stack(surf).contiguous()                  # [4, 900, 3]
+        qe = p8.expand(4, 8000, 3).contiguous()
+        on_seg = (seg8[None] == segs[:, None]).float()
+        mask = on_seg.clone()
+        mask[3] = 0.0
+        e2e_shapes.update(q=qe, x=xe, on_seg=on_seg)
+        for tag, qq, xx, mk in (
+                ("slot chamfer 4 x (8,000 vs 900)", qe, xe, None),
+                ("masked reverse 4 x (900 vs 8,000), slot 3 all masked", xe,
+                 qe, mask)):
+            d_k, i_k = kernels.min_sqdist_with_idx(qq, xx, mk)
+            d_p, i_p = kernels.min_sqdist_with_idx_plain(qq, xx, mk)
+            live = [b_ for b_ in range(4) if mk is None or b_ != 3]
+            err = (d_k - d_p).abs()[live]
+            uniq = torch.stack([unique_min_mask(
+                qq[b_], xx[b_] if mk is None else xx[b_][mk[b_] > 0])
+                for b_ in live])
+            report[f"K3_e2e_{'masked' if mk is not None else 'slots'}"
+                   "_max_abs_err"] = float(err.max())
+            plan = kernels.min_sqdist_plan(4, qq.shape[1], xx.shape[1], sms)
+            check(bool((err <= 1e-6 + 1e-5 * d_p.abs()[live]).all())
+                  and bool((i_k[live] == i_p[live])[uniq].all()),
+                  f"K3 {tag} (plan {plan}): max |d| "
+                  f"{float(err.max()):.3e} within 1e-6 + 1e-5 |ref|, indices "
+                  f"equal on {int(uniq.sum())}/{uniq.numel()} unique minima")
+            if mk is not None:
+                check(bool((d_k[3] == kernels.MIN_SQDIST_BIG).all())
+                      and bool((i_k[3] == 0).all()),
+                      "K3 masked reverse, slot 3: 1e30 and index 0")
+            # K4 on these argmins, a random incoming gradient everywhere
+            # (the fully masked slot too: dq and dx must stay finite there);
+            # on the slot chamfer also the gradient the e2e loss gives it,
+            # mean over the GT segment's points, 0 elsewhere (slot 3's
+            # segment empty: 0 everywhere), which K4 leaves out of its sums
+            grads = [("random gradient",
+                      torch.rand(qq.shape[:2], device=dev, generator=g3))]
+            if mk is None:
+                grads.append(("the loss's masked gradient",
+                              mask / (mask.sum(1, keepdim=True) + 1e-7)))
+            for g_tag, gg in grads:
+                dq_k, dx_k = kernels.min_sqdist_bwd(qq, xx, i_k, gg)
+                dq_p, dx_p = kernels.min_sqdist_bwd_plain(qq, xx, i_k, gg)
+                check(bool(torch.equal(dq_k, dq_p))
+                      and bool(torch.equal(dx_k, dx_p))
+                      and bool(torch.isfinite(dq_k).all())
+                      and bool(torch.isfinite(dx_k).all()),
+                      f"K4 {tag}, {g_tag}: dq and dx bitwise equal to "
+                      "plain, finite")
+        print(f"[3b e2e shapes] K3 and K4 at the slot chamfer's shapes "
+              "checked", flush=True)
+
+    e2e_shapes = {}
+    phase(e2e_kernel_checks)
+
     # ---- 4. the slice: bench.py's configuration, with the spline slots,
     # then the spline-free arm
     spline_fit = build_spline_fit(device=dev)
@@ -1253,22 +1449,34 @@ def main():
                                          "quality_floors.json")))["bench"]
 
     siou_batch = {}   # the SIOU call of stream a's first timed batch
+    cov_args = []     # the coverage call of its first shape
 
     def slice_run():
-        # keep the arguments of the batch's one SIOU call (it draws
-        # nothing, so keeping them moves no metric)
+        # keep the arguments of the batch's one SIOU call, and of the first
+        # timed shape's coverage (neither draws, so keeping them moves no
+        # metric)
         siou, calls = tp.siou_matched_segments, []
+        cover, cov_calls = tp.protocol_coverage, []
 
         def keep(*args, **kwargs):
             if len(calls) == warmup:
                 siou_batch.update(args=args, kwargs=kwargs)
             calls.append(1)
             return siou(*args, **kwargs)
+
+        def keep_cov(*args):
+            if len(cov_calls) == warmup * n_batch:
+                cov_args.extend(args)
+            cov_calls.append(1)
+            return cover(*args)
         tp.siou_matched_segments = keep
+        tp.protocol_coverage = keep_cov
+        gen_state = gen.get_state()
         try:
             out = stream_a(iters, spline_fit)
         finally:
             tp.siou_matched_segments = siou
+            tp.protocol_coverage = cover
         report_arm("slice", "stream a, spline slots", iters, *out,
                    REFERENCE_FULL, "JAX full path")
         launches = out[3]
@@ -1299,6 +1507,50 @@ def main():
         report["siou_batched_equals_per_shape"] = same
         check(same, "SIOU of the batch equals the one-shape calls, bitwise "
               "(seg_iou " + ", ".join(f"{float(v):.5f}" for v in seg) + ")")
+
+        # the coverage draw's cdf of the first timed shape's trimmed area
+        # weights, built 20 times each way: a 1-d CUDA cumsum (a look-back
+        # scan), and fixed_order_cdf, which protocol_coverage takes
+        c_pts, c_surf, c_w = cov_args[:3]
+        sub = c_pts[::max(1, c_pts.shape[0] // tp.COV_TRIM_POINTS)]
+        w = c_w * (tp.min_sqdist(c_surf, sub.contiguous())
+                   <= tp.COV_TRIM_EPS ** 2)
+        distinct = {}
+        for how, fn in (("torch.cumsum", lambda: torch.cumsum(w, dim=0)),
+                        ("fixed_order_cdf", lambda: tp.fixed_order_cdf(w))):
+            seen = []
+            for _ in range(20):
+                c = fn()
+                if not any(torch.equal(c, u) for u in seen):
+                    seen.append(c)
+            distinct[how] = len(seen)
+        report["cdf_distinct_of_20"] = distinct
+        print(f"  coverage cdf of one shape's {w.numel()} area weights, "
+              f"distinct results in 20 builds: {distinct}", flush=True)
+        check(distinct["fixed_order_cdf"] == 1, "the coverage cdf repeats "
+              "bit for bit (fixed_order_cdf, 20 builds)")
+
+        # stream a again from the same generator state: every per-shape
+        # metric, the coverage's included, must repeat bit for bit
+        after = gen.get_state()
+        gen.set_state(gen_state)
+        again = stream_a(iters, spline_fit)
+        check(torch.equal(gen.get_state(), after), "the second run of "
+              "stream a draws as many numbers as the first")
+        report["slice_repeat"] = {"per_shape": again[0],
+                                  "ms_per_shape": 1000.0 * again[1]
+                                  / (iters * n_batch)}
+        for k in ("p_cov", "sk_1", "sk_2", "seg_iou", "prim_iou",
+                  "residual"):
+            diff = [i for i, (u, v) in enumerate(zip(out[0][k],
+                                                     again[0][k])) if u != v]
+            check(not diff and len(out[0][k]) == iters * n_batch,
+                  f"stream a twice: {k} equal bit for bit at all "
+                  f"{iters * n_batch} shapes (differs at {diff})")
+        ms_again = report["slice_repeat"]["ms_per_shape"]
+        print(f"  stream a, second run: {ms_again:.2f} ms/shape; sk_2 "
+              f"{np.mean(again[0]['sk_2']):.5f}, p_cov "
+              f"{np.mean(again[0]['p_cov']):.5f}", flush=True)
 
     phase(slice_run)
 
@@ -1507,6 +1759,256 @@ def main():
 
     phase(train_run)
 
+    # ---- 5e. the e2e trainer; 5s. the segmentation trainer
+    from parsenet_tpu_torch.core.checkpoint import load_npz_params
+    from parsenet_tpu_torch.core.config import load_config
+    from parsenet_tpu_torch.models.dgcnn import (PrimitivesEmbedding,
+                                                 params_from_jax)
+    from parsenet_tpu_torch.train import train_e2e as te2e
+    from parsenet_tpu_torch.train import train_seg as tseg
+    shipped = load_npz_params(PARAMS)
+    cpu = torch.device("cpu")
+
+    class AfterWarmup(StageTimer):
+        """A StageTimer that records nothing until `warm` optimizer
+        stages (so `warm` train steps) have ended."""
+
+        def __init__(self, warm):
+            super().__init__(True)
+            self.warm, self.seen = warm, 0
+
+        def __call__(self, stage):
+            if self.seen >= self.warm:
+                return super().__call__(stage)
+            if stage == "optimizer":
+                self.seen += 1
+            return contextlib.nullcontext()
+
+    def parity_batch(cfg, where):
+        """A parity config's shapes, mean-centred, and its draws, as
+        scripts/e2e_train_reference.py makes them: (x, labels, prim,
+        u_points, u_pairs), the draws broadcast to every shape."""
+        p_, l_, n_, pr_ = make_shape_batch(np.random.RandomState(cfg["seed"]),
+                                           cfg["shapes"], cfg["points"])
+        p_ = p_ - p_.mean(1, keepdims=True)
+        x_ = np.concatenate([p_, n_], -1).astype(np.float32)
+        u_p, u_q = parity_draws(cfg["seed"])
+        b_ = cfg["shapes"]
+        return (torch.from_numpy(x_).to(where),
+                torch.from_numpy(l_).to(where),
+                torch.from_numpy(pr_).to(where),
+                torch.from_numpy(u_p).to(where).expand(b_, *u_p.shape),
+                torch.from_numpy(u_q).to(where).expand(b_, *u_q.shape))
+
+    def embedding_model(where, k=80):
+        m = PrimitivesEmbedding(emb_size=128, num_primitives=10, mode=5, k=k)
+        m.load_state_dict(params_from_jax(shipped, m))
+        return m.to(where)
+
+    def hold(tag, got, ref, rtol):
+        for i, (g, r) in enumerate(zip(got, ref)):
+            print(f"  ({tag}) step {i + 1}: " + ", ".join(
+                f"{k} {g[k]:.9g} (JAX {v:.9g})" for k, v in r.items()),
+                flush=True)
+            for k, v in r.items():
+                tol = rtol[k][i] if isinstance(rtol, dict) else rtol[i]
+                d = abs(g[k] - v)
+                check(d <= tol * max(abs(v), 1e-3), f"{tag} step {i + 1} "
+                      f"{k} within {tol:g} of JAX ({d:.2e})")
+
+    def repeat_check(tag, runs):
+        """Two runs from one seed: every step's metrics and the
+        validation's equal bit for bit; the first differing step
+        printed."""
+        a_, b_ = runs
+        diff = [i + 1 for i, (u, v) in enumerate(zip(a_["steps"],
+                                                     b_["steps"])) if u != v]
+        same = not diff and a_["val"] == b_["val"]
+        report[f"{tag}_repeats"] = {"equal": same, "first_differing_step":
+                                    diff[0] if diff else None}
+        print(f"  {tag} twice from one seed: every loss and metric equal: "
+              f"{same} (first differing step {diff[0] if diff else None})",
+              flush=True)
+        return same
+
+    def train_full(tag, run, timed, shapes_per_step):
+        """Two runs of `run` (a run_training call from one seed), each
+        with `timed` timed steps after one warm-up: ms a step, shapes/s,
+        stage ms, peak memory, launches."""
+        runs = []
+        for i in (1, 2):
+            timer = AfterWarmup(1)
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            res = run(timer)
+            launches = dict(kernels.LAUNCHES)
+            timer.ms()
+            ev = timer.events
+            # from the first timed step's first stage to its last's end
+            ms_step = next(iter(ev.values()))[0][0].elapsed_time(
+                ev["optimizer"][-1][1]) / timed
+            stage = {k: sum(x.elapsed_time(y) for x, y in v) / timed
+                     for k, v in ev.items()}
+            steps = [{k: float(v) for k, v in m.items()} for m in res.steps]
+            val = {k: v for k, v in res.epochs[-1].items()
+                   if k.startswith("val")}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs.append({"ms_per_step": ms_step,
+                         "shapes_per_s": shapes_per_step * 1000.0 / ms_step,
+                         "stage_ms_per_step": stage, "steps": steps,
+                         "val": val, "peak_gib": peak,
+                         "launches": launches})
+            print(f"[{tag}] run {i}: {timed} timed steps, {ms_step:.1f} "
+                  f"ms/step, {shapes_per_step * 1000.0 / ms_step:.2f} "
+                  f"shapes/s, peak memory {peak:.2f} GiB; stage ms/step: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in stage.items()),
+                  flush=True)
+            for j, st in enumerate(steps):
+                print(f"  step {j + 1}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in st.items()))
+            print(f"  validation {val}; launches {launches}", flush=True)
+            check(all(np.isfinite(v) for st in steps for v in st.values())
+                  and all(np.isfinite(v) for v in val.values()),
+                  f"{tag} run {i}: losses and metrics finite")
+            check(all(st["grad_ok"] == 1.0 for st in steps),
+                  f"{tag} run {i}: grad_ok 1 at every step")
+        return runs
+
+    def e2e_run():
+        out = report["e2e"] = {}
+        cfg = E2E_PARITY
+        # (a) parity: two steps on the card from the shipped weights and
+        # decoders against the JAX package; between them the card's step-1
+        # gradients against the port's plain path on the CPU
+        models, steps, batches = {}, {}, {}
+        for where in (dev, cpu):
+            models[where] = embedding_model(where, cfg["k"])
+            fit = spline_fit if where == dev else build_spline_fit(
+                device=cpu)
+            steps[where] = te2e.make_e2e_step(
+                models[where], fit, make_optimizer(
+                    models[where].parameters(), "adam", cfg["lr"]),
+                lamb=0.1)[0]
+            x_, l_, p_, u_p, u_q = parity_batch(cfg, where)
+            batches[where] = (x_[None], l_[None], p_[None],
+                              [te2e.E2EDraws(u_p, u_q, None)], cfg["lr"])
+        kernels.reset_launches()
+        got = [steps[dev](*batches[dev])]
+        parity_launches = dict(kernels.LAUNCHES)
+        on_cpu = steps[cpu](*batches[cpu])
+        # NMS is decided by last bits, so the card and the CPU may cluster
+        # the shape otherwise; gradients are compared only where both
+        # found as many clusters
+        same_clusters = float(got[0]["clusters"]) == float(on_cpu["clusters"])
+        grad_err = {}
+        for (pname, p), q in zip(models[dev].named_parameters(),
+                                 models[cpu].parameters()):
+            a_, b_ = p.grad.cpu().double().ravel(), q.grad.double().ravel()
+            grad_err[pname] = (float((a_ - b_).norm() / (b_.norm() + 1e-30)),
+                               float(a_ @ b_ / (a_.norm() * b_.norm()
+                                                + 1e-30)),
+                               float(b_.norm()))
+        got.append(steps[dev](*batches[dev]))
+        got = [{k: float(v) for k, v in g.items()} for g in got]
+        out["parity"] = {"steps": got, "grad_err": grad_err,
+                         "grads_compared": same_clusters,
+                         "launches_step1": parity_launches}
+        hold("5e e2e parity", got, E2E_REFERENCE, E2E_RTOL)
+        worst = max(grad_err, key=lambda n: grad_err[n][0])
+        print("  step 1 gradients, card vs CPU plain path, largest relative "
+              "L2: " + ", ".join(f"{n} {grad_err[n][0]:.2e} (cos "
+                                 f"{grad_err[n][1]:.6f})" for n in sorted(
+                                     grad_err, key=lambda n: -grad_err[n][0]
+                                 )[:5]), flush=True)
+        if not same_clusters:
+            print(f"  step 1 gradients not compared: the card found "
+                  f"{float(got[0]['clusters']):g} clusters, the CPU "
+                  f"{float(on_cpu['clusters']):g}", flush=True)
+        check(not same_clusters
+              or all(c >= E2E_GRAD_COS or (r <= 1e-9 and e <= 1.0)
+                     for e, c, r in grad_err.values()),
+              f"e2e step-1 gradients of all {len(grad_err)} tensors at "
+              f"cosine >= {E2E_GRAD_COS} with the CPU's (worst relative L2 "
+              f"{worst}: {grad_err[worst][0]:.2e})")
+
+        # (b) configs/config_parsenet_e2e.yml at full width: 8,000 of
+        # 10,000 points, k 80, batch 1, accum 5, lr 1e-4, from the shipped
+        # weights and decoders; synthetic shapes; 1 warm-up + 3 timed
+        # steps, then eval_step on a fixed 2-shape validation sample
+        conf = load_config(os.path.join(REPO, "configs",
+                                         "config_parsenet_e2e.yml")).replace(
+            num_epochs=1, model_path="chip_smoke_e2e",
+            log_dir=os.path.join(OUT_DIR, "train_logs"))
+        per_step = conf.batch_size * conf.accum
+
+        def run(timer):
+            tr = make_shape_batch(np.random.RandomState(20), 4 * per_step,
+                                  10000)
+            va = make_shape_batch(np.random.RandomState(21), 2, 10000)
+            tr_gen = (tuple(a[i:i + per_step] for a in tr)
+                      for i in range(0, 4 * per_step, per_step))
+            va_gen = (tuple(a[i:i + 1] for a in va) for i in range(2))
+            return te2e.run_training(
+                conf, tr_gen, va_gen, steps_per_epoch=4,
+                points_per_shape=conf.num_points, pretrained=shipped,
+                spline_fit=spline_fit, val_shapes=2, checkpoint=False,
+                device=dev, timer=timer)
+
+        runs = train_full("5e e2e", run, 3, per_step)
+        out["full"], out["full_repeat"] = runs
+        for kname in ("K1", "K2", "K3", "K4"):
+            check(runs[0]["launches"][kname] > 0, f"e2e run launched "
+                  f"{kname} ({runs[0]['launches'][kname]})")
+        repeat_check("e2e", runs)
+
+    phase(e2e_run)
+
+    def seg_run():
+        out = report["seg"] = {}
+        cfg = SEG_PARITY
+        # (a) parity: two steps on the card from the shipped weights
+        a_ = cfg["accum"]
+        micro = (a_, cfg["shapes"] // a_)
+        model_s = embedding_model(dev, cfg["k"])
+        step_s = tseg.make_step_fns(model_s, make_optimizer(
+            model_s.parameters(), "adam", cfg["lr"]))[0]
+        batch = [t.reshape(*micro, *t.shape[1:])
+                 for t in parity_batch(cfg, dev)]
+        got = [{k: float(v) for k, v in step_s(*batch, cfg["lr"]).items()}
+               for _ in range(2)]
+        out["parity"] = got
+        hold("5s seg parity", got, SEG_REFERENCE, SEG_RTOL)
+
+        # (b) configs/config_parsenet_normals.yml at full width: 7,000 of
+        # 10,000 points, batch 8, accum 3, k 80, lr 0.01, from the seeded
+        # initialisation; 1 warm-up + 3 timed steps, the validation on 8
+        # fixed shapes
+        conf = load_config(os.path.join(REPO, "configs",
+                                         "config_parsenet_normals.yml")
+                           ).replace(num_epochs=1, model_path="chip_smoke_seg",
+                                     log_dir=os.path.join(OUT_DIR,
+                                                          "train_logs"))
+        per_step = conf.batch_size * conf.accum
+
+        def run(timer):
+            tr = make_shape_batch(np.random.RandomState(30), 4 * per_step,
+                                  10000)
+            va = make_shape_batch(np.random.RandomState(31), conf.batch_size,
+                                  10000)
+            tr_gen = (tuple(a[i:i + per_step] for a in tr)
+                      for i in range(0, 4 * per_step, per_step))
+            return tseg.run_training(conf, tr_gen, iter([va]),
+                                     steps_per_epoch=4,
+                                     val_shapes=conf.batch_size,
+                                     checkpoint=False, device=dev,
+                                     timer=timer)
+
+        runs = train_full("5s seg", run, 3, per_step)
+        out["full"], out["full_repeat"] = runs
+        repeat_check("seg", runs)
+
+    phase(seg_run)
+
     # ---- 6. kernel times at main-path shapes
     entries = []
 
@@ -1594,8 +2096,27 @@ def main():
         # batch (the slice runs bf16)
         f32_l = report.get("f32_batch", {}).get("f32", {}).get(
             "launches", {"K1": 0})
+        # and the f32 K1's escalation attempts in the e2e phase's first
+        # full-width run, at 8,000 x 128 x 5 iterations
+        e2e_l = report.get("e2e", {}).get("full", {}).get(
+            "launches", {k: 0 for k in kernels.LAUNCHES})
+        x8 = embn[:8000].contiguous()
+        e_flops = 5 * 4 * 8000 * 8000 * d
+        e2e_k1 = {"ms": cuda_ms(lambda: kernels.mean_shift_iterations(
+            x8, bw, 5), 10), "plain_ms": cuda_ms(
+            lambda: kernels.mean_shift_iterations_plain(x8, bw, 5), 3),
+            "bound_ms": 1000.0 * max(min(3 * e_flops / PEAK_TF32,
+                                         e_flops / PEAK_FP32),
+                                     2 * 8000 * d * 4 / HBM_BYTES_S),
+            "library_ms": cuda_ms(lambda: sdpa_mean_shift(x8, bw_f, 5), 3),
+            "max_abs_err": report.get("K1_f32_e2e_max_abs_err")}
+        print(f"[6 times] K1 f32 at the e2e attempts' 8000x128x5: kernel "
+              f"{e2e_k1['ms']:.3f} ms, plain {e2e_k1['plain_ms']:.3f} ms, "
+              f"SDPA yardstick {e2e_k1['library_ms']:.3f} ms, bound "
+              f"{e2e_k1['bound_ms']:.3f} ms (operations)", flush=True)
         for tag, kname, src, n_l in (
-                ("f32", "K1", "ms_iterations_tf32", f32_l["K1"]),
+                ("f32", "K1", "ms_iterations_tf32",
+                 f32_l["K1"] + e2e_l["K1"]),
                 ("bf16", "K1tc", "ms_iterations_tc", launches["K1tc"])):
             k_ms, p_ms, bound, l_ms = report[f"K1_{tag}_ms"]
             entries.append({
@@ -1605,7 +2126,9 @@ def main():
                 "launches": n_l,
                 "max_abs_err": report.get(f"K1_{tag}_max_abs_err"),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": "operations", "library_ms": l_ms, "id": kname})
+                "bound_by": "operations", "library_ms": l_ms, "id": kname,
+                **({"launches_e2e": e2e_l["K1"], "e2e": e2e_k1}
+                   if tag == "f32" else {})})
 
         # K1 exit at 10,000 x 128 x 50, tol 1e-6, on the 8 stream-a
         # embeddings beside tol = 0; its bound is the fixed-count bound
@@ -1768,7 +2291,8 @@ def main():
                 "name": ename, "route": "cuda",
                 "source": "parsenet_tpu_torch/csrc/auction_assign.cu",
                 "replaces": "parsenet_tpu/ops/pallas_kernels.py:345",
-                "launches": launches[kname], "max_abs_err": err,
+                "launches": launches[kname] + e2e_l.get(kname, 0),
+                "launches_e2e": e2e_l.get(kname, 0), "max_abs_err": err,
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": None, "device_ms": k_dev,
                 "batch_ms": k4_ms, "batch_device_ms": k4_dev,
@@ -1816,6 +2340,20 @@ def main():
               f"eager, {tot['device_ms']:.4f} ms device; cdist "
               f"{tot['library_ms']:.4f} / {tot['library_device_ms']:.4f}; "
               f"bound {tot['bound']:.4f} ms", flush=True)
+        # K3 at the e2e loss's slot chamfer, 4 x (8,000 vs 900)
+        e2e_k3 = {}
+        if e2e_shapes:
+            qe, xe = e2e_shapes["q"], e2e_shapes["x"]
+            e2e_k3 = time_k3(kernels, qe, xe, 20)
+            e2e_k3["plain_ms"] = cuda_ms(
+                lambda: kernels.min_sqdist_with_idx_plain(qe, xe), 3)
+            e2e_k3["bound_ms"] = 1000.0 * max(
+                8 * 4 * 8000 * 900 / PEAK_FP32,
+                4 * ((8000 + 900) * 12 + 8000 * 8) / HBM_BYTES_S)
+            print("[6 times] K3 at the e2e slot chamfer 4x(8000 vs 900): "
+                  + k3_line(e2e_k3) + f", plain {e2e_k3['plain_ms']:.4f} "
+                  f"ms, bound {e2e_k3['bound_ms']:.5f} ms (operations)",
+                  flush=True)
         # K3 batched at the training shape: one launch per train step
         train_l = report.get("train", {}).get(
             "launches", {k: 0 for k in kernels.LAUNCHES})
@@ -1833,7 +2371,7 @@ def main():
             "name": "min_sqdist_idx", "route": "cuda",
             "source": "parsenet_tpu_torch/csrc/min_sqdist.cu",
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:418",
-            "launches": launches["K3"] + train_l["K3"],
+            "launches": launches["K3"] + train_l["K3"] + e2e_l["K3"],
             "max_abs_err": max(err, report.get("K3_train_max_abs_err", 0.0)),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound"], "bound_by": "operations",
@@ -1843,6 +2381,7 @@ def main():
             "calls": per_call,
             "launches_inference": launches["K3"],
             "launches_train": train_l["K3"],
+            "launches_e2e": e2e_l["K3"], "e2e": e2e_k3,
             "train_ms": tt["ms"], "train_device_ms": tt["device_ms"],
             "train_plain_ms": t_plain, "train_bound_ms": t_bound,
             "train_library_ms": tt["library_ms"],
@@ -1869,11 +2408,43 @@ def main():
               f"{k4['library_device_ms']:.4f} ms device; bound "
               f"{k4_bound:.5f} ms (bytes: {k4_bytes} bytes, {n_rows} "
               "distinct argmin rows)", flush=True)
+        # K4 at the e2e slot chamfer, on K3's argmins there, with the
+        # gradient the e2e loss gives it: the mean over each slot's GT
+        # segment, 0 on the other points, which K4 leaves out of its chains
+        e2e_k4 = {}
+        if e2e_shapes:
+            qe, xe = e2e_shapes["q"], e2e_shapes["x"]
+            on_seg = e2e_shapes["on_seg"]
+            ie = kernels.min_sqdist_with_idx(qe, xe)[1]
+            ge = on_seg / (on_seg.sum(1, keepdim=True) + 1e-7)
+            e2e_k4 = time_k4(kernels, qe, xe, ie, ge, 10)
+            e2e_k4["plain_ms"] = cuda_ms(lambda: kernels.min_sqdist_bwd_plain(
+                qe, xe, ie, ge), 1)
+            rows_e = (ie.long() + 900 * torch.arange(4, device=dev)[:, None]
+                      )[ge != 0]
+            e2e_k4["longest_chain"] = int(torch.bincount(rows_e).max())
+            e2e_k4["longest_chain_all"] = int(torch.bincount(
+                (ie.long() + 900 * torch.arange(4, device=dev)[:, None])
+                .reshape(-1)).max())
+            # every query's q, g, idx read and dq written; the argmin rows
+            # of the queries with a gradient read; dx written
+            e_rows = int(torch.unique(rows_e).numel())
+            e2e_k4["bound_ms"] = 1000.0 * (4 * 8000 * 32 + e_rows * 12
+                                           + 4 * 900 * 12) / HBM_BYTES_S
+            print(f"[6 times] K4 at the e2e slot chamfer 4x(8000 vs 900), "
+                  f"the loss's gradient: {e2e_k4['ms']:.4f} ms eager, "
+                  f"{e2e_k4['device_ms']:.4f} ms device, plain "
+                  f"{e2e_k4['plain_ms']:.4f} ms, bound "
+                  f"{e2e_k4['bound_ms']:.5f} ms (bytes); longest chain "
+                  f"{e2e_k4['longest_chain']} queries with a gradient "
+                  f"({e2e_k4['longest_chain_all']} of all queries)",
+                  flush=True)
         entries.append({
             "name": "min_sqdist_bwd", "route": "cuda",
             "source": "parsenet_tpu_torch/csrc/min_sqdist_bwd.cu",
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:463",
-            "launches": train_l["K4"],
+            "launches": train_l["K4"] + e2e_l["K4"],
+            "launches_e2e": e2e_l["K4"], "e2e": e2e_k4,
             "max_abs_err": report.get("K4_max_abs_err"),
             "ms": k4["ms"], "plain_ms": k4_plain, "bound_ms": k4_bound,
             "bound_by": "bytes", "library_ms": k4["library_ms"],

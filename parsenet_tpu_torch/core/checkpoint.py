@@ -5,7 +5,9 @@ An export is a flat npz whose keys are '/'-joined flax tree paths, for
 example "params/encoder/conv1/w_diff/kernel", stored as float16 or float32.
 The trainers save their best-validation weights in the same layout (f32),
 which parsenet_tpu.core.checkpoint.load_npz_params reads back; the JAX
-package's orbax checkpoints are not ported.
+package's orbax checkpoints are not ported. For a resumed run (the
+segmentation trainer's preload_model) the optimizer state and the step are
+saved beside the npz with torch.save (`save_train_state`).
 """
 from __future__ import annotations
 
@@ -50,6 +52,34 @@ def save_npz_params(path: str, flat: dict[str, np.ndarray]) -> None:
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **{k: np.asarray(v, np.float32) for k, v in flat.items()})
     os.replace(tmp, path)
+
+
+def _state_path(npz_path: str) -> str:
+    return os.path.splitext(npz_path)[0] + ".train_state.pt"
+
+
+def save_train_state(npz_path: str, flat: dict[str, np.ndarray],
+                     optimizer_state: dict, step: int) -> None:
+    """The weights as an npz export at `npz_path`, and beside it the
+    optimizer's state_dict and the step (torch.save), each written
+    atomically."""
+    import torch
+    save_npz_params(npz_path, flat)
+    path = _state_path(npz_path)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"optimizer": optimizer_state, "step": int(step)}, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(npz_path: str):
+    """(flat weights, optimizer state_dict, step) saved by
+    `save_train_state`, or None when either file is absent."""
+    import torch
+    path = _state_path(npz_path)
+    if not (os.path.exists(npz_path) and os.path.exists(path)):
+        return None
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return load_npz_params(npz_path), state["optimizer"], state["step"]
 
 
 class PlateauScheduler:

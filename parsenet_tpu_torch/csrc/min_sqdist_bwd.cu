@@ -16,6 +16,10 @@
 // plain version's. dx is summed in a fixed order, ascending query index
 // (dx_j = ((0 - dq_i1) - dq_i2) - ..., i1 < i2 < ...), so two runs give the
 // same bits, and so does the plain version, which sums in the same order.
+// A query whose dq is zero in all three components is left out of the sum:
+// that changes no bit of dx (the sum starts at +0 and a subtraction reaches
+// -0 only from -0), and it keeps the chains short where the incoming
+// gradient is zero for most queries.
 //
 // Bound on this card: bytes. Per query it reads q, g and idx and writes dq
 // (32 bytes, against 12 FLOP); each distinct argmin row of x is read once
@@ -40,12 +44,12 @@
 // compare-and-swap loop). The push order varies from run to run; the sum
 // does not: after a second barrier, the thread that owns a target walks
 // its chain and takes the queries in ascending index order (a selection
-// over the chain: the chains are short, most hold one query or none), and
-// writes dx once. The entries live in shared memory where the patch's
-// queries fit beside the chunk (the training shape: 11 KB), else in the
-// caller's workspace in device memory ([B, N] entries; each query is
-// written by the one block whose chunk holds its argmin, and read back by
-// the same block after the barrier). Each query's argmin lies in exactly
+// over the chain, L^2 loads for L queries: the chains are short, most hold
+// one query or none), and writes dx once. The entries live in shared
+// memory where the patch's queries fit beside the chunk (the training
+// shape: 11 KB), else in the caller's workspace in device memory ([B, N]
+// entries; each query is written by the one block whose chunk holds its
+// argmin, and read back by the same block after the barrier). Each query's argmin lies in exactly
 // one chunk, so every dq is written once; a patch wider than a chunk is
 // more blocks on the grid.
 #include <cuda_runtime.h>
@@ -124,8 +128,14 @@ min_sqdist_bwd_kernel(const float* __restrict__ q, const float* __restrict__ x,
                     __fmul_rn(2.f, __fsub_rn(v[c], xs[3 * j + c])), cur.g);
                 dq[3 * i + c] = d[c];
             }
-            ent[i] = make_float4(d[0], d[1], d[2],
-                                 __int_as_float(atomicExch(head + j, i)));
+            // a query whose dq is exactly zero (the e2e loss weighs the
+            // points off a slot's GT segment by 0) joins no chain: dx
+            // starts at +0, so subtracting a zero leaves its bits as they
+            // are, and a chain holds only the queries that move its target
+            if (d[0] != 0.f || d[1] != 0.f || d[2] != 0.f)
+                ent[i] = make_float4(
+                    d[0], d[1], d[2],
+                    __int_as_float(atomicExch(head + j, i)));
         }
         cur = next;
     }

@@ -248,6 +248,24 @@ def _residual(points, pred_labels, params: AllPrimParams, geom_type, valid,
             / (torch.sum(pt_valid) + EPS))
 
 
+def fixed_order_cdf(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of w [M] whose float sums follow one order on
+    every device and in every run: w (zero-padded to a multiple of K_MAX,
+    the segments of a shape's area weights) viewed as [K_MAX, M / K_MAX],
+    a scan along each row (torch.cumsum over the last dim of a 2-d
+    tensor: one block a row, a fixed tree, where a 1-d CUDA cumsum is a
+    look-back scan whose sums follow the blocks' timing), plus each row's
+    offset, the rows' totals before it summed as one product with a
+    strictly lower-triangular matrix of ones."""
+    m, rows = w.shape[0], K_MAX
+    cols = -(-m // rows)
+    within = torch.cumsum(torch.nn.functional.pad(w, (0, rows * cols - m))
+                          .reshape(rows, cols), dim=1)
+    tri = torch.tril(torch.ones((rows, rows), dtype=w.dtype,
+                                device=w.device), diagonal=-1)
+    return (within + (tri @ within[:, -1])[:, None]).reshape(-1)[:m]
+
+
 @torch.no_grad()
 def protocol_coverage(points: torch.Tensor, flat_surf: torch.Tensor,
                       flat_w: torch.Tensor, uniforms: torch.Tensor):
@@ -256,14 +274,15 @@ def protocol_coverage(points: torch.Tensor, flat_surf: torch.Tensor,
     points [N, 3]; flat_surf [M, 3] surface samples with area-times-validity
     weights flat_w [M]; uniforms [COV_SAMPLES] in [0, 1). Surface farther
     than COV_TRIM_EPS from the input (tested against a 2,500-point input
-    subsample) is trimmed, COV_SAMPLES samples are drawn area-weighted, and
-    the one-sided sqrt chamfers are measured both ways.
+    subsample) is trimmed, COV_SAMPLES samples are drawn area-weighted
+    (their cdf from `fixed_order_cdf`, so a draw repeats from run to run on
+    the card), and the one-sided sqrt chamfers are measured both ways.
     """
     n = points.shape[0]
     sub = points[::max(1, n // COV_TRIM_POINTS)].contiguous()
     trim_d = min_sqdist(flat_surf, sub)
     flat_w = flat_w * (trim_d <= COV_TRIM_EPS ** 2)
-    cdf = torch.cumsum(flat_w, dim=0)
+    cdf = fixed_order_cdf(flat_w)
     u = uniforms.to(torch.float32) * cdf[-1]
     pick = torch.clamp(torch.searchsorted(cdf, u), 0, flat_surf.shape[0] - 1)
     surf_s = flat_surf[pick]

@@ -1,13 +1,17 @@
-"""The frozen spline decoders of the inference path.
+"""The frozen spline decoders of the inference path and of the e2e loss.
 
-Counterpart of make_spline_apply(...).batched_eval
-(parsenet_tpu/fitting/pipeline.py:146-167) and of build_spline_fit
-(parsenet_tpu/train/train_e2e.py:56-97), eval mode only: the open and
-closed SplineNets (k = 10, grid 20) in eval mode and the basis matrices of
-their 30 x 30 parameter grids. Each slot's preprocessed points are
+Counterpart of make_spline_apply(...).batched and .batched_eval
+(parsenet_tpu/fitting/pipeline.py:126-167) and of build_spline_fit
+(parsenet_tpu/train/train_e2e.py:56-97): the open and closed SplineNets
+(k = 10, grid 20) in eval mode with their parameters frozen, and the basis
+matrices of their 30 x 30 parameter grids. Each slot's points are
 standardised, decoded to a control grid (closed: with its wrap-around row),
 sampled on the grid and carried back to the segment's frame (reference
-src/primitive_forward.py:34-85, 347-397).
+src/primitive_forward.py:34-85, 347-397). `batched_eval` takes the
+preprocessed points of the inference path with unit weights, without
+gradient; `batched` takes the whole strided cloud with each slot's soft
+weights, and gradients flow through both into the embedding (reference
+residual_utils.py:50-66 freezes the pretrained decoders the same way).
 
 `build_spline_fit` reads the committed params/{open,closed}_splinenet.npz
 only. A missing or unreadable file raises: the JAX package falls back to
@@ -39,8 +43,8 @@ class SplineFit(nn.Module):
     def __init__(self, open_model: SplineNet, closed_model: SplineNet,
                  sample_grid: int = 30):
         super().__init__()
-        self.open_model = open_model.eval()
-        self.closed_model = closed_model.eval()
+        self.open_model = open_model.eval().requires_grad_(False)
+        self.closed_model = closed_model.eval().requires_grad_(False)
         grid = open_model.grid
         dev = next(open_model.parameters()).device
         for name, (u, v) in (
@@ -50,8 +54,10 @@ class SplineFit(nn.Module):
             self.register_buffer("nu" + name, torch.from_numpy(u).to(dev))
             self.register_buffer("nv" + name, torch.from_numpy(v).to(dev))
 
-    def _decode(self, model: SplineNet, pts: torch.Tensor, closed: bool):
-        w = torch.ones(pts.shape[:2], dtype=pts.dtype, device=pts.device)
+    def _decode(self, model: SplineNet, pts: torch.Tensor, closed: bool,
+                w=None):
+        if w is None:
+            w = torch.ones(pts.shape[:2], dtype=pts.dtype, device=pts.device)
         st = standardize_points(pts, w)
         cp = model(st.points, weights=w).reshape(
             pts.shape[0], model.grid, model.grid, 3)
@@ -60,6 +66,16 @@ class SplineFit(nn.Module):
         else:
             surf = sample_surface(self.nu, self.nv, cp)
         return unstandardize_points(surf, st)
+
+    def batched(self, points: torch.Tensor, weights: torch.Tensor,
+                is_closed: torch.Tensor) -> torch.Tensor:
+        """points [S, M, 3], soft weights [S, M], is_closed [S] bool ->
+        surfaces [S, sample_grid^2, 3]: every slot through both decoders,
+        the closed one's surface where is_closed; differentiable in points
+        and weights."""
+        surf_o = self._decode(self.open_model, points, False, weights)
+        surf_c = self._decode(self.closed_model, points, True, weights)
+        return torch.where(is_closed[:, None, None], surf_c, surf_o)
 
     @torch.no_grad()
     def batched_eval(self, pts1800: torch.Tensor,

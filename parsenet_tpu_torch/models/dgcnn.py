@@ -1,4 +1,4 @@
-"""DGCNN / EdgeConv segmentation network (inference).
+"""DGCNN / EdgeConv segmentation network.
 
 Counterpart of parsenet_tpu/models/dgcnn.py (reference src/PointNet.py:
 143-289, DGCNNEncoderGn + PrimitivesEmbeddingDGCNGn):
@@ -10,6 +10,10 @@ Counterpart of parsenet_tpu/models/dgcnn.py (reference src/PointNet.py:
 Layout is the JAX package's: points-major [B, N, C]. GroupNorm keeps the
 flax formula, var = max(0, E[x^2] - E[x]^2) (torch.nn.GroupNorm takes a
 two-pass variance), so the carried-across weights give the same numbers.
+Everything but the kNN indices is differentiable (the trainers'
+networks); `params_from_jax` / `params_to_jax` carry weights to and from
+the flat flax layout of params/parsenet_e2e.npz, and `init_flax_like`
+draws flax's initialisers.
 """
 from __future__ import annotations
 
@@ -188,6 +192,49 @@ def params_from_jax(flat: dict[str, np.ndarray],
         raise KeyError(f"params_from_jax: unused {unused}, unset {unset}, "
                        f"shape mismatch {bad}")
     return sd
+
+
+def _flax_leaves(model: nn.Module):
+    """(state_dict name, flax key, is a Dense kernel) of every parameter."""
+    for mname, mod in model.named_modules():
+        if isinstance(mod, (nn.Linear, GroupNorm)):
+            for leaf in ("weight", "bias"):
+                if getattr(mod, leaf, None) is None:
+                    continue
+                flax_leaf = leaf if leaf == "bias" else (
+                    "kernel" if isinstance(mod, nn.Linear) else "scale")
+                yield (f"{mname}.{leaf}",
+                       "/".join(["params"] + mname.split(".") + [flax_leaf]),
+                       flax_leaf == "kernel")
+
+
+def params_to_jax(model: nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of `params_from_jax`: {"params/...": f32 ndarray} in the
+    flat flax layout of params/parsenet_e2e.npz (Dense kernels [in, out]),
+    which parsenet_tpu.core.checkpoint.load_npz_params reads."""
+    sd = model.state_dict()
+    out = {}
+    for name, key, kernel in _flax_leaves(model):
+        a = sd[name].detach().to("cpu", torch.float32)
+        out[key] = (a.T if kernel else a).contiguous().numpy()
+    return out
+
+
+def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's initialisers: Dense kernels lecun_normal (a normal of variance
+    1 / fan_in truncated at 2 standard deviations), biases 0, GroupNorm
+    scale 1 and bias 0."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                std = (1.0 / mod.in_features) ** 0.5 / .87962566103423978
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, GroupNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
 
 
 def load_primitives_embedding(path: str, mode: int = 5, k: int = 80,

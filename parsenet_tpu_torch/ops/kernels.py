@@ -895,7 +895,8 @@ def min_sqdist_bwd(q: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
     forward's argmin idx [B, N] int32 and the incoming gradient g [B, N] f32
     -> (dq [B, N, 3], dx [B, M, 3]), one launch. Both are bitwise the plain
     version's: dx sums each target's queries in ascending query order, so
-    runs repeat."""
+    runs repeat (the kernel leaves out queries whose dq is zero, which
+    changes no bit and keeps a target's chain to the queries that move it)."""
     if not _on_cuda("min_sqdist_bwd", q, x, idx, g):
         return min_sqdist_bwd_plain(q, x, idx, g)
     for label, t, dtype, ndim in (("q", q, torch.float32, 3),

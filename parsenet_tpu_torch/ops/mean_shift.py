@@ -1,10 +1,16 @@
-"""Mean-shift clustering on the unit hypersphere, inference form.
+"""Mean-shift clustering on the unit hypersphere.
 
-Counterpart of parsenet_tpu/ops/mean_shift.py for guard_mean_shift with
-differentiable=False: every attempt runs the full iteration count (K1) and
-its NMS, and the bandwidth-escalation guard (double the quantile until at
-most max_clusters clusters; reference src/mean_shift.py:81-96) is a Python
-loop. The [N, N] products of `nms` and `_subset_sqdist` are plain matmuls.
+Counterpart of parsenet_tpu/ops/mean_shift.py. `guard_mean_shift` has the
+JAX package's two forms. Inference (differentiable=False): every attempt
+runs the full iteration count (K1) and its NMS, and the accepted attempt is
+the result. Training (differentiable=True): the attempts run without
+gradient through K1 f32 for `attempt_iterations`, then the accepted
+bandwidth is run again for `iterations` by `mean_shift_iterations_autograd`,
+plain PyTorch with autograd (K1 has no backward), or, under
+torch.no_grad(), by K1 f32 once more. In both, the bandwidth-escalation
+guard (double the quantile until at most max_clusters clusters; reference
+src/mean_shift.py:81-96) is a Python loop. The [N, N] products of `nms` and
+`_subset_sqdist` are plain matmuls.
 """
 from __future__ import annotations
 
@@ -106,39 +112,83 @@ def nms(shifted: torch.Tensor, X: torch.Tensor, bandwidth: torch.Tensor):
     return center_mask, labels, num_clusters
 
 
-@torch.no_grad()
+def mean_shift_iterations_autograd(X: torch.Tensor, bandwidth: torch.Tensor,
+                                   iterations: int) -> torch.Tensor:
+    """`iterations` gaussian mean-shift steps of X [N, D] as plain PyTorch
+    with autograd, the JAX package's XLA mean_shift_iterations: m <-
+    normalize((K @ X) / (rowsum K + 1e-12)), K = exp((2 m.X - 2) / 2b^2),
+    starting from m = X. Differentiable in X (the bandwidth is a constant
+    of the guard); each iteration keeps its [N, N] K for the backward."""
+    inv2b2 = 1.0 / (2.0 * bandwidth * bandwidth)
+    m = X
+    for _ in range(iterations):
+        k = torch.exp((2.0 * (m @ X.T) - 2.0) * inv2b2)
+        new_m = (k @ X) / (torch.sum(k, dim=1, keepdim=True) + 1e-12)
+        m = new_m / (torch.linalg.norm(new_m, dim=1, keepdim=True) + 1e-12)
+    return m
+
+
 def guard_mean_shift(X: torch.Tensor, quantile: float,
                      num_samples: int = 5000, iterations: int = 10,
                      max_clusters: int = 49, max_doublings: int = 8,
                      bf16_dots: bool = False,
                      subset: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
-                     tol: float = 0.0) -> MeanShiftResult:
+                     tol: float = 0.0, differentiable: bool = False,
+                     attempt_iterations: Optional[int] = None
+                     ) -> MeanShiftResult:
     """Mean-shift with bandwidth escalation until <= max_clusters clusters.
 
-    X: [N, D] unit rows. Each attempt runs all `iterations` in one K1
-    launch plus NMS and is the result when accepted. bf16_dots: bf16
-    operands in K1's products (the bench's setting; f32 by default).
-    subset / generator: the random subset for the bandwidth statistic
-    (see _subset_sqdist). tol > 0: every attempt takes K1's early exit
-    (the JAX package's pallas_tol), a 128-row block stopping once an
-    iteration moves none of its rows by more than tol.
-    """
-    d_sub = _subset_sqdist(X, num_samples, subset, generator)
+    X: [N, D] unit rows. subset / generator: the random subset for the
+    bandwidth statistic (see _subset_sqdist); the bandwidth carries no
+    gradient.
 
-    def full(bw):
-        shifted = mean_shift_iterations(X, bw, iterations, bf16_dots=bf16_dots,
-                                        tol=tol)
-        center_mask, labels, k = nms(shifted, X, bw)
+    differentiable=False (inference): each attempt runs all `iterations`
+    in one K1 launch plus NMS and is the result when accepted. bf16_dots:
+    bf16 operands in K1's products (the bench's setting; f32 by default).
+    tol > 0: every attempt takes K1's early exit (the JAX package's
+    pallas_tol), a 128-row block stopping once an iteration moves none of
+    its rows by more than tol.
+
+    differentiable=True (training, f32, tol 0): the attempts run
+    `attempt_iterations` (None: `iterations`) without gradient through K1
+    f32 and decide the bandwidth from their NMS; the accepted bandwidth is
+    then run again for `iterations`: with autograd by
+    mean_shift_iterations_autograd when grad mode is on, else by K1 f32
+    (the attempt itself when it ran as many iterations). NMS reads the
+    detached result, so `shifted` is the only differentiable output.
+    """
+    if differentiable and (bf16_dots or tol):
+        raise ValueError("guard_mean_shift: the differentiable branch runs "
+                         "f32 attempts at tol = 0")
+    X_ng = X.detach()
+    att_iters = (attempt_iterations or iterations) if differentiable \
+        else iterations
+
+    def attempt(bw):
+        shifted = mean_shift_iterations(X_ng, bw, att_iters,
+                                        bf16_dots=bf16_dots, tol=tol)
+        center_mask, labels, k = nms(shifted, X_ng, bw)
         return shifted, center_mask, labels, k
 
-    q = np.float32(quantile)
-    bw = _initial_bandwidth(d_sub, float(quantile))
-    shifted, center_mask, labels, k = full(bw)
-    i = 0
-    while k > max_clusters and i < max_doublings:
-        i += 1
-        q = np.float32(q * np.float32(2.0))
-        bw = _escalation_bandwidth(d_sub, q)
-        shifted, center_mask, labels, k = full(bw)
+    with torch.no_grad():
+        d_sub = _subset_sqdist(X_ng, num_samples, subset, generator)
+        q = np.float32(quantile)
+        bw = _initial_bandwidth(d_sub, float(quantile))
+        shifted, center_mask, labels, k = attempt(bw)
+        i = 0
+        while k > max_clusters and i < max_doublings:
+            i += 1
+            q = np.float32(q * np.float32(2.0))
+            bw = _escalation_bandwidth(d_sub, q)
+            shifted, center_mask, labels, k = attempt(bw)
+    if not differentiable or (att_iters == iterations
+                              and not torch.is_grad_enabled()):
+        return MeanShiftResult(shifted, center_mask, labels, bw, k)
+    if torch.is_grad_enabled():
+        shifted = mean_shift_iterations_autograd(X, bw, iterations)
+    else:
+        shifted = mean_shift_iterations(X_ng, bw, iterations)
+    with torch.no_grad():
+        center_mask, labels, k = nms(shifted.detach(), X_ng, bw)
     return MeanShiftResult(shifted, center_mask, labels, bw, k)

@@ -87,3 +87,19 @@ def siou_matched_segments(gt_labels: torch.Tensor, pred_labels: torch.Tensor,
         torch.float32)
     prim_iou = torch.sum(type_match * valid, dim=1) / n_valid
     return (seg_iou[0], prim_iou[0]) if one else (seg_iou, prim_iou)
+
+
+def mean_iou_per_class(gt: torch.Tensor, pred_logits: torch.Tensor,
+                       num_classes: int = 10) -> torch.Tensor:
+    """Per-class IoU of the argmax type against gt, averaged over classes
+    and shapes (reference src/segment_loss.py:127-148, evaluate_miou); a
+    class absent from both counts as IoU 1. gt [B, N] int, pred_logits
+    [B, N, C] -> scalar."""
+    pred = torch.argmax(pred_logits, dim=-1)
+    eps = float(torch.finfo(torch.float32).eps)
+    cls = torch.arange(num_classes, device=gt.device)[:, None, None]
+    g, p = gt[None] == cls, pred[None] == cls                  # [C, B, N]
+    inter = torch.sum(g & p, dim=-1).to(torch.float32) + eps
+    union = torch.sum(g | p, dim=-1).to(torch.float32) + eps
+    iou = inter / union
+    return torch.sum(iou) * (1.0 / iou.numel())   # XLA's mean: sum x 1/n

@@ -1,14 +1,18 @@
-"""Per-segment canonicalisation before SplineNet (forward only).
+"""Per-segment canonicalisation before SplineNet.
 
 Counterpart of parsenet_tpu/ops/standardize.py (reference
 src/fitting_utils.py:493-583): pick the confident subset of a weighted
 segment, mean-centre it, rotate the minor principal axis onto x and scale
 by the weighted bounding-box extent. Batched over a leading slot axis.
+Gradients flow through the weighted mean into the points and weights; the
+rotation and the scale are detached, as in the JAX package (the
+reference's numpy round-trip).
 
-The minor axis is column 0 of `linalg.eigh3`, exactly as the JAX package's
-Jacobi eigh gives it, with no sign rule: `linalg.smallest_eigvec` makes the
-largest component positive, which the JAX standardize_points does not, and
-the SplineNet is not invariant to that flip.
+The minor axis is column 0 of `linalg.safe_eigh`, exactly as the JAX
+package's Jacobi eigh gives it, with no sign rule:
+`linalg.smallest_eigvec` makes the largest component positive, which the
+JAX standardize_points does not, and the SplineNet is not invariant to
+that flip.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.guards import EPS
-from .linalg import eigh3
+from .linalg import safe_eigh
 
 
 class Standardization(NamedTuple):
@@ -68,15 +72,15 @@ def standardize_points(points: torch.Tensor, weights: torch.Tensor,
     wsum = torch.sum(w, dim=(-2, -1))[..., None] + EPS
     mean = torch.sum(points * w, dim=-2) / wsum
     centered = points - mean[..., None, :]
-    sel = centered * mask[..., None]
+    sel = (centered * mask[..., None]).detach()
     cov = sel.transpose(-1, -2) @ sel
-    smallest = eigh3(cov)[1][..., :, 0]
+    smallest = safe_eigh(cov)[1][..., :, 0]
     x_axis = torch.zeros_like(smallest)
     x_axis[..., 0] = 1.0
     R = rotation_matrix_a_to_b(smallest, x_axis)
     rotated = centered @ R.transpose(-1, -2)
 
-    wp = rotated * w
+    wp = (rotated * w).detach()
     keep = mask[..., None] > 0
     hi = torch.amax(torch.where(keep, wp, -1e9), dim=-2)
     lo = torch.amin(torch.where(keep, wp, 1e9), dim=-2)

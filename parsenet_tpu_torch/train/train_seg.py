@@ -1,0 +1,197 @@
+"""ParSeNet segmentation trainer.
+
+Counterpart of parsenet_tpu/train/train_seg.py (reference
+train_parsenet.py): the DGCNN PrimitivesEmbedding trained with the triplet
+embedding loss and the primitive NLL, Adam with a plateau lr on the
+validation embedding loss, gradient accumulation over micro-batches, a
+random point subsample a step (10,000 -> 7,000), the best-validation
+weights saved as an npz in the flax layout of params/parsenet_e2e.npz with
+the optimizer state and step beside it (`preload_model` resumes from
+them), and the type head's mIoU.
+
+    python -m parsenet_tpu_torch.train.train_seg configs/config_parsenet_normals.yml
+
+The entry reads the config's h5 splits ({dataset}{train,val,test}_data.h5)
+and fails without them; callers with other data pass their own generators
+to `run_training`. The triplet draws come from a torch.Generator; the step
+functions take them as arguments.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..core.checkpoint import (PlateauScheduler, load_train_state,
+                               save_train_state)
+from ..core.config import Config, load_config
+from ..core.guards import entry_device
+from ..core.logging import MetricsLogger, setup_logging, snapshot_config
+from ..core.profiling import StageTimer
+from ..losses.embedding import draw_triplet, primitive_nll_loss, triplet_loss
+from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
+                            params_from_jax, params_to_jax)
+from ..ops.segmentation import mean_iou_per_class
+from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
+                    mean_metrics, pack_batch, validation_sample)
+
+log = logging.getLogger(__name__)
+
+STAGES = ("forward", "backward", "optimizer")
+METRICS = ("embed_loss", "prim_loss", "miou")
+
+
+def make_step_fns(model: PrimitivesEmbedding,
+                  optimizer: torch.optim.Optimizer):
+    """(train_step, eval_step) over `model` and `optimizer`.
+
+    train_step(points [A, B, N, C], labels [A, B, N], prim [A, B, N],
+    u_points [A, B, S_MAX, P], u_pairs [A, B, N_PAIRS, 2], lr, timer)
+    accumulates the gradients of the A micro-batches, averages them, zeroes
+    them all where any entry is not finite (the optimizer still steps) and
+    takes one step; it returns the micro-batches' mean metrics and grad_ok.
+    eval_step(points [B, N, C], labels, prim, u_points, u_pairs) returns the
+    metrics without gradient."""
+    params = list(model.parameters())
+
+    def loss_fn(points, labels, prim, u_points, u_pairs):
+        emb, prim_logp = model(points)
+        e_loss = triplet_loss(emb, labels, u_points, u_pairs)
+        p_loss = primitive_nll_loss(prim_logp, prim)
+        return e_loss + p_loss, {
+            "embed_loss": e_loss, "prim_loss": p_loss,
+            "miou": mean_iou_per_class(prim, prim_logp.detach())}
+
+    def train_step(points, labels, prim, u_points, u_pairs, lr: float,
+                   timer: StageTimer = NO_TIMER):
+        def micro(a):
+            with timer("forward"):
+                return loss_fn(points[a], labels[a], prim[a], u_points[a],
+                               u_pairs[a])
+        return accumulated_step(optimizer, params, micro, points.shape[0],
+                                METRICS, lr, timer)
+
+    @torch.no_grad()
+    def eval_step(points, labels, prim, u_points, u_pairs):
+        return loss_fn(points, labels, prim, u_points, u_pairs)[1]
+
+    return train_step, eval_step
+
+
+def run_training(config: Config, train_gen: Optional[Iterator] = None,
+                 val_gen: Optional[Iterator] = None,
+                 steps_per_epoch: Optional[int] = None,
+                 points_per_shape: int = 7000, val_shapes: int = 32,
+                 checkpoint: bool = True, device=None,
+                 timer: StageTimer = NO_TIMER) -> TrainResult:
+    """The training loop. Generators yield numpy (points [B, N, 3], labels
+    [B, N], normals, prim); the training one B = batch_size x accum
+    shapes. Without them the config's h5 splits are read (data.abc
+    .ABCDataset). val_shapes: the size of the FIXED validation sample (the
+    same shapes, point subsample and triplet draws every epoch) that
+    scores epochs for the plateau lr and the best-weights save. With
+    `checkpoint`, every epoch whose validation embedding loss is the best
+    so far writes {log_dir}/checkpoints/{model_path}.npz and the optimizer
+    state beside it; preload_model resumes from them. device None =
+    "cuda"; `timer` splits each step into STAGES. Returns a TrainResult
+    whose epochs hold the means, val_embed_loss and lr."""
+    from ..data.abc import ABCDataset
+
+    dev = entry_device(device)
+    num_accum = max(config.accum, 1)
+    with_normals = config.mode == 5
+    if train_gen is None:
+        ds = ABCDataset(config.batch_size * num_accum,
+                        path_prefix=config.dataset or "data/shapes/",
+                        train_size=config.num_train or None,
+                        val_size=config.num_val or None,
+                        test_size=config.num_test or None)
+        train_gen = ds.get_train(if_normal_noise=with_normals)
+        val_gen = ds.get_val(if_normal_noise=with_normals,
+                             batch_size=config.batch_size)
+
+    model = PrimitivesEmbedding(emb_size=128, num_primitives=10,
+                                mode=5 if with_normals else 0,
+                                k=config.knn_k)
+    init_flax_like(model, torch.Generator().manual_seed(config.seed))
+    model.to(dev)
+    optimizer = make_optimizer(model.parameters(), config.optim, config.lr,
+                               config.weight_decay)
+    ckpt_path = os.path.join(config.log_dir, "checkpoints",
+                             f"{config.model_path}.npz")
+    step = 0
+    if config.preload_model:
+        restored = load_train_state(ckpt_path)
+        if restored is not None:
+            flat, opt_state, step = restored
+            model.load_state_dict(params_from_jax(flat, model))
+            optimizer.load_state_dict(opt_state)
+            log.info("resumed from step %d", step)
+    train_step, eval_step = make_step_fns(model, optimizer)
+    sched = PlateauScheduler(config.lr, patience=config.patience, factor=0.5)
+    steps_per_epoch = steps_per_epoch or max(
+        config.num_train // (config.batch_size * num_accum), 1)
+    host_rng = np.random.RandomState(config.seed + 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(config.seed + 2)
+    best = float("inf")
+    lr = config.lr
+    mlog = MetricsLogger(config.log_dir, config.model_path)
+
+    def pack(points, labels, normals, prim, rng):
+        return pack_batch(points, labels, normals, prim, rng,
+                          points_per_shape, with_normals, dev)
+
+    val_batches = validation_sample(
+        val_gen, val_shapes, config.batch_size, config.seed, pack,
+        lambda x, g: draw_triplet(x.shape[0], g, dev), dev)
+
+    steps, epochs = [], []
+    for epoch in range(config.num_epochs):
+        t0 = time.time()
+        agg = []
+        for _ in range(steps_per_epoch):
+            micro = (num_accum, config.batch_size)
+            batch = (*pack(*next(train_gen), host_rng),
+                     *draw_triplet(num_accum * config.batch_size, gen, dev))
+            agg.append(train_step(*(t.reshape(*micro, *t.shape[1:])
+                                    for t in batch), lr, timer))
+            step += 1
+        val_emb = mean_metrics([eval_step(*vb)
+                                for vb in val_batches])[1]["embed_loss"]
+        lr = sched.step(val_emb)
+        step_floats, tr = mean_metrics(agg)
+        steps += step_floats
+        log.info("epoch %d embed %.4f prim %.4f miou %.3f | val embed %.4f "
+                 "lr %.2e (%.1fs)", epoch, tr["embed_loss"], tr["prim_loss"],
+                 tr["miou"], val_emb, lr, time.time() - t0)
+        epochs.append({**tr, "val_embed_loss": val_emb, "lr": lr})
+        mlog.log(epoch, epochs[-1])
+        if checkpoint and val_emb < best:
+            best = val_emb
+            save_train_state(ckpt_path, params_to_jax(model),
+                             optimizer.state_dict(), step)
+    mlog.close()
+    return TrainResult(model, steps, epochs)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Train the ParSeNet segmentation network.")
+    ap.add_argument("config", help="configs/config_parsenet*.yml")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    cfg = load_config(args.config)
+    setup_logging(cfg.log_dir, cfg.model_path)
+    snapshot_config(cfg, cfg.log_dir, cfg.model_path)
+    run_training(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -216,3 +216,31 @@ def test_ordered_scatter_sub_sums_in_query_order(rng, count, size, width):
         for i in reversed(range(count)):
             back[rows[i]] = back[rows[i]] - vals[i]
         assert not torch.equal(back, want)
+
+
+def test_ordered_scatter_sub_without_zero_rows_keeps_every_bit(rng):
+    """K4 leaves out of its chains the queries whose dq is zero in all
+    three components (the e2e loss gives 0 to the points off a slot's GT
+    segment). That must change no bit of dx, the sign of a zero included:
+    the sum with those rows (+0 and -0 among them, and rows whose other
+    values cancel to an exact 0) against the sum without them."""
+    count, size = 3000, 40
+    rows = torch.from_numpy(rng.randint(0, size, count))
+    vals = rng.randn(count, 3).astype(np.float32)
+    zero = rng.rand(count) < 0.8
+    vals[zero] = 0.0
+    vals[zero & (rng.rand(count) < 0.5)] *= -1.0        # -0 rows
+    vals[rows.numpy() == 0] = 0.0
+    vals[:2] = [[1.5, -2.0, 0.25], [-1.5, 2.0, -0.25]]  # cancel to 0 ...
+    rows[:2] = 1
+    rows[2:][rows[2:] == 1] = 2                          # ... alone in row 1
+    vals = torch.from_numpy(vals)
+    keep = (vals != 0).any(1)
+    full = kernels.ordered_scatter_sub(rows, vals, size)
+    kept = kernels.ordered_scatter_sub(rows[keep], vals[keep], size)
+    assert int((~keep).sum()) > count // 2
+    assert torch.equal(full.view(torch.int32), kept.view(torch.int32))
+    assert torch.equal(full[0].view(torch.int32),
+                       torch.zeros(3).view(torch.int32))
+    assert torch.equal(full[1].view(torch.int32),
+                       torch.zeros(3).view(torch.int32))
