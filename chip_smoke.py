@@ -112,6 +112,24 @@ Phases, one line each (plus detail lines):
      scripts/torch_ab_mean_shift.py) on the first timed batch's 4
      embeddings in both modes: both exit kernels launched, labels against
      the tol = 0 guard's (co-membership >= 0.99), ms a shape;
+  4d. the test protocol: the port's CLIs (parsenet_tpu_torch.cli) at full
+     width on 8 shapes of stream a (shapes 8-15, 10k points), mode 5, k 80,
+     params/parsenet_e2e.npz placed as {log_dir}/checkpoints/
+     {model_path}.npz of a temporary config under OUT_DIR (removed
+     after): generate_predictions on 2 batches of 4 (f32 mean-shift), test
+     on the 8 shapes with the 12 spline slots, test --optimize on 2 of them,
+     test_open_splines and test_closed_control_points on 2 batches of 36
+     synthetic patches each from the shipped decoders (the refit on one
+     batch of 4 patches), iou_from_embeddings on one shape's embedding;
+     with h5py each CLI's main through h5 files, without it the same split
+     functions in memory (which one is printed). Checks: generate's
+     seg_id equal bit for bit to predict_segmentation's on the same
+     shapes with one generator of the same seed; K1 f32 at least once a
+     shape and K2 once a batch in generate, K3 4 times a shape in test (7
+     with --optimize), K3 in the SplineNet tests, K1 f32 and one K2 in
+     iou_from_embeddings; every refined surface and every metric finite.
+     Prints ms a shape of each CLI, the quality beside phase 4's on the
+     same shapes, cd and cd_optim;
   5. train: SplineNet at full width (grid 20, k 10, 36 patches of 700
      points, 40 x 40 surface samples, anisotropic, loss_weight 0.9, Adam
      at lr 1e-3):
@@ -723,7 +741,8 @@ def main():
     from parsenet_tpu_torch.data.synthetic import (make_shape_batch,
                                                    make_spline_batch)
     from parsenet_tpu_torch.eval import pipeline as tp
-    from parsenet_tpu_torch.fitting.spline_apply import build_spline_fit
+    from parsenet_tpu_torch.fitting.spline_apply import (build_spline_fit,
+                                                         trained_spline_fit)
     from parsenet_tpu_torch.models.dgcnn import load_primitives_embedding
     from parsenet_tpu_torch.models.splinenet import load_splinenet
     from parsenet_tpu_torch.ops import hungarian as hg
@@ -806,6 +825,10 @@ def main():
     n_batch, warmup, iters, n_pts = 4, 2, 8, 10000
     pts, labels, normals, prim = make_shape_batch(
         np.random.RandomState(7), (warmup + iters) * n_batch, n_pts)
+    # phase 4d's 8 shapes as an ABC h5 holds them (before normalize_points)
+    proto = slice(warmup * n_batch, (warmup + 2) * n_batch)
+    proto_raw = (pts[proto].astype(np.float32),
+                 normals[proto].astype(np.float32))
     for i in range(pts.shape[0]):
         pts[i], normals[i], _, _ = normalize_points(pts[i], normals[i])
     pts, normals = pts.astype(np.float32), normals.astype(np.float32)
@@ -1640,6 +1663,224 @@ def main():
 
     phase(exit_path)
 
+    # ---- 4d. the test protocol: the port's CLIs at full width
+    def test_protocol():
+        import importlib.util
+        import shutil
+        from parsenet_tpu_torch.cli import generate_predictions as cgen
+        from parsenet_tpu_torch.cli import test as ctest
+        from parsenet_tpu_torch.eval import splines as tsplines
+        from parsenet_tpu_torch.eval.metrics import iou_from_embeddings
+        has = {m: importlib.util.find_spec(m) is not None
+               for m in ("h5py", "matplotlib")}
+        t_phase = time.perf_counter()
+        out = report["test_protocol"] = {"modules": has, "launches": {
+            k: 0 for k in kernels.LAUNCHES}}
+        word = {True: "present", False: "absent"}
+        print(f"[4d test protocol] h5py {word[has['h5py']]}, matplotlib "
+              f"{word[has['matplotlib']]}: "
+              + ("each CLI's main through h5 files" if has["h5py"] else
+                 "the CLIs' split functions in memory") + f"; {smi}",
+              flush=True)
+        work = os.path.join(OUT_DIR, "test_protocol")
+        shutil.rmtree(work, ignore_errors=True)
+        ckpt = os.path.join(work, "logs", "checkpoints")
+        os.makedirs(ckpt)
+        for name in ("parsenet_e2e", "open_splinenet", "closed_splinenet"):
+            shutil.copy(os.path.join(REPO, "params", f"{name}.npz"), ckpt)
+
+        def config(name, **kw):
+            kw = {"dataset": os.path.join(work, "data") + "/",
+                  "log_dir": os.path.join(work, "logs"), "seed": 0, **kw}
+            path = os.path.join(work, f"{name}.yml")
+            with open(path, "w") as f:
+                f.write("[train]\n" + "".join(
+                    f'{k} = "{v}"\n' if isinstance(v, str) else
+                    f"{k} = {v}\n" for k, v in kw.items()))
+            return path, Config.from_file(path)
+
+        def step(name, fn, n_shapes):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms = 1000.0 * (time.perf_counter() - t0) / n_shapes
+            launches = dict(kernels.LAUNCHES)
+            for k, v in launches.items():
+                out["launches"][k] += v
+            out[name] = {"ms_per_shape": ms, "launches": launches}
+            return res, ms, launches
+
+        n8 = proto.stop - proto.start
+        seg_cfg_path, seg_cfg = config(
+            "seg", model_path="parsenet_e2e", mode=5, knn_k=80, num_val=n8,
+            num_test=n8)
+        if has["h5py"]:
+            import h5py
+            os.makedirs(seg_cfg.dataset)
+            for split in ("val", "test"):
+                with h5py.File(f"{seg_cfg.dataset}{split}_data.h5", "w") as hf:
+                    for key, a in (("points", proto_raw[0]),
+                                   ("normals", proto_raw[1]),
+                                   ("labels", labels[proto]),
+                                   ("prim", prim[proto])):
+                        hf.create_dataset(key, data=a)
+            inputs = cgen.load_test_split(seg_cfg)
+        else:
+            inputs = (pts[proto], labels[proto], normals[proto], prim[proto])
+        p_pts, p_lab, p_nrm, p_prim = inputs
+
+        # 1. generate_predictions on 2 batches of 4
+        def generate():
+            if has["h5py"]:
+                return cgen.main([seg_cfg_path])
+            g = torch.Generator(device=dev)
+            g.manual_seed(seg_cfg.seed)
+            return cgen.predict_split(model, p_pts, p_nrm, p_lab, p_prim, g,
+                                      device=dev)
+        pred, gen_ms, l_gen = step("generate_predictions", generate, n8)
+        # predict_segmentation itself on the same shapes, one generator of
+        # the same seed, batches of 4: the CLI must add nothing
+        g = torch.Generator(device=dev)
+        g.manual_seed(seg_cfg.seed)
+        direct = np.concatenate([tp.predict_segmentation(
+            model, p_pts[b:b + 4], p_nrm[b:b + 4], p_lab[b:b + 4],
+            p_prim[b:b + 4], generator=g, device=dev).labels.cpu().numpy()
+            for b in range(0, n8, 4)])
+        check(np.array_equal(pred["seg_id"], direct), "generate_predictions"
+              "' seg_id equals predict_segmentation's on the same shapes "
+              "and generator seed, bit for bit")
+        check(l_gen["K1"] >= n8 and l_gen["K1tc"] == 0,
+              f"generate_predictions: K1 f32 launched at least once a shape "
+              f"({l_gen['K1']} for {n8}), the bf16 K1 never")
+        check(l_gen["K2"] == n8 // 4, f"generate_predictions: K2 launched "
+              f"once a batch ({l_gen['K2']} for {n8 // 4})")
+
+        # 2. test on the 8 shapes with the 12 spline slots, then --optimize
+        # on 2 of them (each refit kept, to see that it is finite)
+        refits = []
+        refine = ctest.refine_splines
+
+        def keep_refit(*args):
+            res = refine(*args)
+            refits.append((res[0][args[5]], args[3][args[5]]))
+            return res
+
+        def run_test(argv, n_shapes):
+            if has["h5py"]:
+                return ctest.main([seg_cfg_path, *argv])
+            g = torch.Generator(device=dev)
+            g.manual_seed(seg_cfg.seed)
+            return ctest.evaluate_split(
+                p_pts[:n_shapes], p_nrm[:n_shapes], pred["seg_id"][:n_shapes],
+                pred["pred_primitives"][:n_shapes],
+                trained_spline_fit(seg_cfg.log_dir, seg_cfg.grid_size, dev),
+                generator=g,
+                if_optimize="--optimize" in argv, device=dev)
+        metrics, test_ms, l_test = step(
+            "test", lambda: run_test(["0", str(n8)], n8), n8)
+        check(l_test["K3"] == 4 * n8, f"test: K3 launched 4 times a shape "
+              f"({l_test['K3']} for {n8})")
+        ctest.refine_splines = keep_refit
+        try:
+            opt, opt_ms, l_opt = step(
+                "test_optimize", lambda: run_test(["0", "2", "--optimize"], 2),
+                2)
+        finally:
+            ctest.refine_splines = refine
+        n_refit = sum(int(np.any(a != b)) for a, b in refits)
+        check(l_opt["K3"] == 7 * 2, f"test --optimize: K3 launched 7 times a "
+              f"shape, 3 of them the refined coverage ({l_opt['K3']} for 2)")
+        check(len(refits) == 2 and n_refit > 0 and all(
+            np.isfinite(a).all() for a, _ in refits), "test --optimize: "
+            f"{n_refit} segments refit, every refined surface finite")
+        ref = report.get("slice", {}).get("per_shape", {})
+        keys = ("seg_iou", "prim_iou", "residual", "p_cov", "sk_1", "sk_2")
+        mean = {k: float(np.mean(pred[k] if k in pred else metrics[k]))
+                for k in keys}
+        mean_opt = {k: float(np.mean(opt[k])) for k in ctest.METRICS}
+        phase4 = {k: float(np.mean(ref[k][:n8])) for k in keys if k in ref}
+        out.update(metrics=mean, metrics_optimize=mean_opt, phase4=phase4,
+                   segments_refit=n_refit, seg_iou=pred["seg_iou"])
+        print(f"  generate_predictions {gen_ms:.2f} ms a shape; test "
+              f"{test_ms:.2f} ms a shape; test --optimize {opt_ms:.2f} ms a "
+              f"shape ({n_refit} segments refit on 2 shapes)", flush=True)
+        print("  quality, f32 mean-shift: " + ", ".join(
+            f"{k} {mean[k]:.5f}" + (f" (phase 4, bf16: {phase4[k]:.5f})"
+                                    if k in phase4 else "") for k in keys))
+        print("  --optimize on 2 shapes: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in mean_opt.items()))
+        check(all(np.isfinite(v) for v in list(mean.values())
+                  + list(mean_opt.values())), "test protocol metrics finite")
+
+        # 3. the SplineNet tests, 2 batches of 36 patches each from the
+        # shipped decoders; the refit on one batch of 4 patches
+        for sname, closed in (("open", False), ("closed", True)):
+            mod = ("test_closed_control_points" if closed
+                   else "test_open_splines")
+            s_path, s_cfg = config(
+                mod, model_path=f"{sname}_splinenet", grid_size=GRID,
+                batch_size=SPLINE_BATCH, num_train=1, num_val=1,
+                dataset=os.path.join(work, f"{sname}_splines.h5"))
+            rs = np.random.RandomState(30 + int(closed))
+            if has["h5py"]:
+                import h5py
+                # 1 train, 1 val and 3 batches of test patches: the test
+                # split's generator yields 3 - 1 batches
+                raw = make_spline_batch(rs, 2 + 3 * SPLINE_BATCH,
+                                        SPLINE_POINTS, GRID, closed)
+                with h5py.File(s_cfg.dataset, "w") as hf:
+                    hf.create_dataset("points", data=raw[0])
+                    hf.create_dataset("controlpoints", data=raw[1])
+                cli = importlib.import_module(f"parsenet_tpu_torch.cli.{mod}")
+                run = lambda: cli.main([s_path])   # noqa: E731
+            else:
+                run = lambda: tsplines.evaluate_splinenet(   # noqa: E731
+                    s_cfg, closed, test_gen=synthetic_batches(
+                        rs, SPLINE_BATCH, SPLINE_POINTS, GRID, closed),
+                    num_batches=2, device=dev)
+            cd, cd_ms, l_cd = step(mod, run, 2 * SPLINE_BATCH)
+            opt_cfg = s_cfg.replace(batch_size=4)
+            cd_opt, cdo_ms, _ = step(
+                f"{mod}_optimize", lambda: tsplines.evaluate_splinenet(
+                    opt_cfg, closed, test_gen=synthetic_batches(
+                        np.random.RandomState(40), 4, SPLINE_POINTS, GRID,
+                        closed), num_batches=1, if_optimize=True,
+                    device=dev), 4)
+            out[mod].update(cd=cd["cd"], cd_optim=cd_opt["cd_optim"],
+                            cd_refit_batch=cd_opt["cd"],
+                            optimize_ms_per_patch=cdo_ms)
+            print(f"  {mod}: cd {cd['cd']:.5f} on 2 x {SPLINE_BATCH} patches "
+                  f"({cd_ms:.3f} ms a patch); --optimize on 4 patches: cd "
+                  f"{cd_opt['cd']:.5f}, cd_optim {cd_opt['cd_optim']:.5f} "
+                  f"({cdo_ms:.1f} ms a patch)", flush=True)
+            check(l_cd["K3"] > 0 and np.isfinite(cd["cd"])
+                  and np.isfinite(cd_opt["cd_optim"]),
+                  f"{mod}: K3 launched ({l_cd['K3']}), cd and cd_optim finite")
+
+        # 4. iou_from_embeddings on one shape's embedding
+        with torch.no_grad():
+            e = model(torch.from_numpy(np.concatenate(
+                [p_pts[:1], p_nrm[:1]], -1)).to(dev))[0][0]
+        g = torch.Generator(device=dev)
+        g.manual_seed(seg_cfg.seed)
+        (iou, _), _, l_iou = step("iou_from_embeddings", lambda: (
+            iou_from_embeddings(e, p_lab[0], generator=g, device=dev)), 1)
+        out["iou_from_embeddings"]["seg_iou"] = iou
+        print(f"  iou_from_embeddings (30 iterations): seg_iou {iou:.5f} "
+              f"(generate_predictions' 50: {pred['seg_iou'][0]:.5f}); "
+              f"launches {l_iou}", flush=True)
+        check(l_iou["K1"] > 0 and l_iou["K2"] == 1 and np.isfinite(iou),
+              "iou_from_embeddings: K1 f32 and one K2 launched, seg_iou "
+              "finite")
+        out["seconds"] = time.perf_counter() - t_phase
+        print(f"  launches in all: {out['launches']}; {out['seconds']:.1f} "
+              "s", flush=True)
+        shutil.rmtree(work, ignore_errors=True)
+
+    phase(test_protocol)
+
     # ---- 5. SplineNet training
     def train_run():
         out = report["train"] = {"launches": {k: 0 for k in kernels.LAUNCHES}}
@@ -2100,6 +2341,9 @@ def main():
         # full-width run, at 8,000 x 128 x 5 iterations
         e2e_l = report.get("e2e", {}).get("full", {}).get(
             "launches", {k: 0 for k in kernels.LAUNCHES})
+        # and every launch of phase 4d's test protocol (K1 f32, K2, K3)
+        proto_l = report.get("test_protocol", {}).get(
+            "launches", {k: 0 for k in kernels.LAUNCHES})
         x8 = embn[:8000].contiguous()
         e_flops = 5 * 4 * 8000 * 8000 * d
         e2e_k1 = {"ms": cuda_ms(lambda: kernels.mean_shift_iterations(
@@ -2116,7 +2360,7 @@ def main():
               f"{e2e_k1['bound_ms']:.3f} ms (operations)", flush=True)
         for tag, kname, src, n_l in (
                 ("f32", "K1", "ms_iterations_tf32",
-                 f32_l["K1"] + e2e_l["K1"]),
+                 f32_l["K1"] + e2e_l["K1"] + proto_l["K1"]),
                 ("bf16", "K1tc", "ms_iterations_tc", launches["K1tc"])):
             k_ms, p_ms, bound, l_ms = report[f"K1_{tag}_ms"]
             entries.append({
@@ -2127,7 +2371,8 @@ def main():
                 "max_abs_err": report.get(f"K1_{tag}_max_abs_err"),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": "operations", "library_ms": l_ms, "id": kname,
-                **({"launches_e2e": e2e_l["K1"], "e2e": e2e_k1}
+                **({"launches_e2e": e2e_l["K1"], "e2e": e2e_k1,
+                    "launches_protocol": proto_l["K1"]}
                    if tag == "f32" else {})})
 
         # K1 exit at 10,000 x 128 x 50, tol 1e-6, on the 8 stream-a
@@ -2291,8 +2536,10 @@ def main():
                 "name": ename, "route": "cuda",
                 "source": "parsenet_tpu_torch/csrc/auction_assign.cu",
                 "replaces": "parsenet_tpu/ops/pallas_kernels.py:345",
-                "launches": launches[kname] + e2e_l.get(kname, 0),
-                "launches_e2e": e2e_l.get(kname, 0), "max_abs_err": err,
+                "launches": launches[kname] + e2e_l.get(kname, 0)
+                + proto_l.get(kname, 0),
+                "launches_e2e": e2e_l.get(kname, 0),
+                "launches_protocol": proto_l.get(kname, 0), "max_abs_err": err,
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": None, "device_ms": k_dev,
                 "batch_ms": k4_ms, "batch_device_ms": k4_dev,
@@ -2371,7 +2618,8 @@ def main():
             "name": "min_sqdist_idx", "route": "cuda",
             "source": "parsenet_tpu_torch/csrc/min_sqdist.cu",
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:418",
-            "launches": launches["K3"] + train_l["K3"] + e2e_l["K3"],
+            "launches": launches["K3"] + train_l["K3"] + e2e_l["K3"]
+            + proto_l["K3"],
             "max_abs_err": max(err, report.get("K3_train_max_abs_err", 0.0)),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound"], "bound_by": "operations",
@@ -2382,6 +2630,7 @@ def main():
             "launches_inference": launches["K3"],
             "launches_train": train_l["K3"],
             "launches_e2e": e2e_l["K3"], "e2e": e2e_k3,
+            "launches_protocol": proto_l["K3"],
             "train_ms": tt["ms"], "train_device_ms": tt["device_ms"],
             "train_plain_ms": t_plain, "train_bound_ms": t_bound,
             "train_library_ms": tt["library_ms"],

@@ -16,6 +16,8 @@ Counterpart of parsenet_tpu/eval/pipeline.py:
   spline_fit=None is the JAX package's BENCH_ABLATE=splines arm: every
   spline segment keeps its geometric fallback.
 * `run_batch`: one batch through both, as bench.py's shape_pipeline does.
+* `coverage_metrics`: p_cov, sk_1 and sk_2 of any surface sample
+  collection against the input (K3 both ways).
 
 Random draws (the bandwidth subset, the spline slots' packing and final
 draws, the coverage uniforms) are arguments or come from an explicit
@@ -82,7 +84,10 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
                          timer: StageTimer = _NO_TIMER
                          ) -> SegmentationPrediction:
     """Segment a batch of shapes. points/normals [B, N, 3], gt_labels /
-    gt_prim [B, N]; model maps [B, N, 6] to (embedding, type log-probs).
+    gt_prim [B, N]; model maps [B, N, 6] (points and normals) to
+    (embedding, type log-probs) when its encoder is mode 5, else [B, N, 3]
+    (points only, mode 0), as the JAX entry point picks the input by the
+    config's mode; a callable without a DGCNN encoder takes [B, N, 6].
 
     subsets [B, S]: the bandwidth-statistic rows per shape, else drawn from
     `generator` (see ops.mean_shift._subset_sqdist). ms_bf16: bf16 operands
@@ -93,8 +98,10 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
     nrm = _as_tensor(normals, dev, torch.float32)
     gt_labels = _as_tensor(gt_labels, dev, torch.int64)
     gt_prim = _as_tensor(gt_prim, dev, torch.int64)
+    xyz_only = getattr(getattr(model, "encoder", None), "mode", 5) != 5
     with timer("dgcnn"):
-        emb, prim_logp = model(torch.cat([pts, nrm], dim=-1))
+        emb, prim_logp = model(pts if xyz_only
+                               else torch.cat([pts, nrm], dim=-1))
         pred_prim = torch.argmax(prim_logp, dim=-1)
         embn = emb / (torch.linalg.norm(emb, dim=-1, keepdim=True) + 1e-12)
     labels, ks = [], []
@@ -393,3 +400,22 @@ def run_batch(model, points, normals, labels, prim,
     out["prim_iou"] = pred.prim_iou.tolist()
     out["num_clusters"] = list(pred.num_clusters)
     return out
+
+
+@torch.no_grad()
+def coverage_metrics(points: torch.Tensor, flat_surf: torch.Tensor,
+                     flat_mask: torch.Tensor,
+                     flat_w: Optional[torch.Tensor] = None):
+    """Coverage of a surface sample collection (parsenet_tpu/eval/
+    pipeline.py:362-379). points [N, 3], flat_surf [M, 3], flat_mask [M]
+    (> 0 keeps a sample), flat_w [M] area weights of the surface -> points
+    side (default flat_mask, uniform). Returns (p_cov, sk_1, sk_2)."""
+    if flat_w is None:
+        flat_w = flat_mask
+    d_in = torch.sqrt(torch.clamp(min_sqdist(points, flat_surf, flat_mask),
+                                  min=1e-12))
+    d_out = torch.sqrt(torch.clamp(min_sqdist(flat_surf, points), min=1e-12))
+    cov = 0.5 * (torch.mean(d_in)
+                 + torch.sum(d_out * flat_w) / (torch.sum(flat_w) + EPS))
+    return (cov, torch.mean((d_in < 0.01).to(torch.float32)),
+            torch.mean((d_in < 0.02).to(torch.float32)))

@@ -13,9 +13,11 @@ gradient; `batched` takes the whole strided cloud with each slot's soft
 weights, and gradients flow through both into the embedding (reference
 residual_utils.py:50-66 freezes the pretrained decoders the same way).
 
-`build_spline_fit` reads the committed params/{open,closed}_splinenet.npz
-only. A missing or unreadable file raises: the JAX package falls back to
-randomly initialised decoders there, the port does not.
+`build_spline_fit` reads {open,closed}_splinenet.npz of a directory (the
+committed params/ by default; `trained_spline_fit` takes a run's own
+checkpoints where both exist). A missing or unreadable file raises: the
+JAX package falls back to randomly initialised decoders there, the port
+does not.
 """
 from __future__ import annotations
 
@@ -99,3 +101,15 @@ def build_spline_fit(grid: int = 20, sample_grid: int = 30,
         load_splinenet(os.path.join(params_dir, "closed_splinenet.npz"), 1,
                        grid, device=device),
         sample_grid)
+
+
+def trained_spline_fit(log_dir: str, grid: int = 20,
+                       device=None) -> SplineFit:
+    """The decoders of {log_dir}/checkpoints/{open,closed}_splinenet.npz
+    (the port's SplineNet trainer saves them there) where both exist, else
+    those of the committed params/."""
+    ckpt_dir = os.path.join(log_dir, "checkpoints")
+    own = all(os.path.exists(os.path.join(ckpt_dir, f"{n}_splinenet.npz"))
+              for n in ("open", "closed"))
+    return build_spline_fit(grid, params_dir=ckpt_dir if own else PARAMS_DIR,
+                            device=device)

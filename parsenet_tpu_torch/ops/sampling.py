@@ -4,7 +4,8 @@ Counterpart of parsenet_tpu/ops/sampling.py (reference
 src/primitive_forward.py:427-693): plane, sphere cap, cylinder and cone
 grids trimmed to the extent of each segment. Every sampler takes the
 parameters of K segments, the shape's points [N, 3] and the segment masks
-[K, N], and returns [K, grid * grid, 3].
+[K, N], and returns [K, grid * grid, 3]; `fibonacci_sphere` covers whole
+spheres and takes no segment.
 """
 from __future__ import annotations
 
@@ -83,6 +84,18 @@ def sample_sphere(center, radius, seg_points, seg_mask, grid: int = 32):
             + (torch.sin(TH) * torch.cos(PH))[..., None] * b1[:, None]
             + (torch.sin(TH) * torch.sin(PH))[..., None] * b2[:, None])
     return center[:, None] + radius[:, None, None] * dirs
+
+
+def fibonacci_sphere(center, radius, grid: int = 32):
+    """grid * grid samples over each whole sphere [K], Fibonacci-spaced (no
+    pole clustering): the JAX package's sample_sphere without a segment."""
+    i = torch.arange(grid * grid, dtype=torch.float32, device=center.device)
+    ga = math.pi * (3.0 - math.sqrt(5.0))
+    z = 1.0 - 2.0 * (i + 0.5) / (grid * grid)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    th = ga * i
+    d = torch.stack([r * torch.cos(th), r * torch.sin(th), z], dim=1)
+    return center[:, None] + radius[:, None, None] * d
 
 
 def sample_cylinder(axis, center, radius, seg_points, seg_mask,

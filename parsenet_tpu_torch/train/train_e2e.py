@@ -38,7 +38,7 @@ from ..core.guards import entry_device
 from ..core.logging import MetricsLogger, setup_logging, snapshot_config
 from ..core.profiling import StageTimer
 from ..fitting.pipeline import fitting_loss_shape
-from ..fitting.spline_apply import PARAMS_DIR, build_spline_fit
+from ..fitting.spline_apply import trained_spline_fit
 from ..losses.embedding import draw_triplet, primitive_nll_loss, triplet_loss
 from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
                             params_from_jax, params_to_jax)
@@ -194,11 +194,8 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
         model.load_state_dict(params_from_jax(pretrained, model))
     model.to(dev)
     if spline_fit is None:
-        own = all(os.path.exists(os.path.join(ckpt_dir, f"{n}_splinenet.npz"))
-                  for n in ("open", "closed"))
-        spline_fit = build_spline_fit(config.grid_size,
-                                      params_dir=ckpt_dir if own
-                                      else PARAMS_DIR, device=dev)
+        spline_fit = trained_spline_fit(config.log_dir, config.grid_size,
+                                        dev)
     optimizer = make_optimizer(model.parameters(), config.optim, config.lr,
                                config.weight_decay)
     knobs = dict(FAST_STEP_KNOBS) if config.fast_step else {}

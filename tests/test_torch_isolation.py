@@ -37,6 +37,40 @@ def test_importing_every_module_loads_no_jax():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("sub", ["cli", "cpp", "postprocess"])
+def test_host_side_and_entry_points_load_no_jax(sub):
+    """Every module of cli/, cpp/ and postprocess/, imported alone, loads
+    neither jax nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"import parsenet_tpu_torch.{sub} as p\n"
+        "names = [p.__name__] + [m.name for m in pkgutil.walk_packages("
+        "p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                         capture_output=True, timeout=120, check=True)
+    n_modules, loaded = out.stdout.splitlines()
+    assert int(n_modules) >= (9 if sub == "cli" else 1)
+    bad = [m for m in loaded.split() if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_native_build_reads_no_path_of_the_jax_package():
+    """The native library is compiled from the port's own copies of the C++
+    sources, into parsenet_tpu_torch/csrc/build/."""
+    from parsenet_tpu_torch import cpp
+    jax_pkg = str(REPO / "parsenet_tpu") + os.sep
+    cmd = cpp.build_command(cpp.lib_path())
+    paths = [a for a in cmd if os.sep in a]
+    assert len(paths) == 1 + len(cpp.SOURCES), cmd
+    for a in paths:
+        assert a.startswith(str(PKG) + os.sep) and not a.startswith(jax_pkg)
+    assert str(cpp.lib_path()).startswith(str(PKG / "csrc" / "build"))
+    assert all(s.parent == PKG / "cpp" for s in cpp.SOURCES)
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
                                         REPO / "chip_smoke.py"]))
@@ -52,9 +86,10 @@ def test_no_jax_import_in_source(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
-def test_entry_points_refuse_cpu_fallback():
+def test_entry_points_refuse_cpu_fallback(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib
     from parsenet_tpu_torch.eval import pipeline as tp
     from parsenet_tpu_torch.models.dgcnn import load_primitives_embedding
     z3 = np.zeros((1, 32, 3), np.float32)
@@ -68,6 +103,20 @@ def test_entry_points_refuse_cpu_fallback():
                              uniforms=torch.zeros(tp.COV_SAMPLES))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tp.run_batch(lambda x: None, z3, z3, z1, z1, torch.Generator())
+    # the CLIs, before they read a file: the config names none that exist
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(f'[train]\ndataset = "{tmp_path}/absent/"\n'
+                   f'log_dir = "{tmp_path}/logs"\n')
+    for name in ("generate_predictions", "test", "test_open_splines",
+                 "test_closed_control_points", "train_parsenet",
+                 "train_parsenet_e2e", "train_open_splines",
+                 "train_closed_control_points"):
+        cli = importlib.import_module(f"parsenet_tpu_torch.cli.{name}")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([str(cfg)])
+    from parsenet_tpu_torch.eval.metrics import iou_from_embeddings
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        iou_from_embeddings(np.eye(4, dtype=np.float32), np.arange(4))
 
 
 def test_kernel_wrappers_take_no_other_device():
