@@ -174,6 +174,21 @@ Phases, one line each (plus detail lines):
      batch 8, accum 3, k 80, lr 0.01, 1 warm-up + 3 timed steps, the
      validation on 8 fixed shapes; the same prints and checks as 5e (b)
      but the launches (the network runs no kernel of the port);
+  7. (run before 6) the port's benches in process, every run's launches
+     counted from zero: parsenet_tpu_torch.cli.bench.run at bench.py's
+     full scale (stream a, 10,000 points, batch 4, 2 + 8 batches) for the
+     full path (floors applied and met), each BENCH_ABLATE arm (ms, siou,
+     recon, splines, preprocess, coverage, residual: the zeros and 1s of
+     the JAX arms exact, the other quality figures within 0.01 absolute
+     (seg_iou, sk_2) or 10% relative (residual, p_cov) of the JAX arm's in
+     artifacts/r5_infer_ablate.jsonl, the kernels each arm runs launched
+     and those it stubs not), and BENCH_DGCNN_BF16 / BENCH_GATHER_BF16
+     (floors met); the stage costs full - arm; then cli.bench_train, cut to
+     2 timed steps (seg; the script runs 5) or 3 (e2e) after one warm-up:
+     seg, seg with BT_BF16 and with BT_REMAT (shapes/s, peak memory), e2e
+     and e2e with BT_FAST (K1 f32, K2, K3, K4 launched), and e2e_ablate at
+     5 timed steps an arm (the script runs 3; its cost_<arm>_ms); grad_ok 1
+     in every train run;
   6. kernel times at main-path shapes beside the plain version, the bound
      and the library yardstick where PyTorch computes the same
      (sdpa_mean_shift for K1 and, one step, K5, torch.cdist for K3,
@@ -234,6 +249,26 @@ REFERENCE_FULL = {"seg_iou": 0.8907, "residual": 0.01019, "p_cov": 0.01588,
                   "sk_2": 0.8688}
 REFERENCE_ABLATE = {"seg_iou": 0.8907, "residual": 0.00907, "p_cov": 0.01523,
                     "sk_2": 0.8899}
+# Phase 7: the port's bench runs (environment knobs of cli.bench; each at
+# bench.py's full scale: 10,000 points, batch 4, 2 + 8 batches of stream a),
+# the JAX package's figures of each arm (artifacts/r5_infer_ablate.jsonl:
+# residual, seg_iou, p_cov, sk_2), and the kernels each arm launches
+ARM_TAGS = ("ms", "siou", "recon", "splines", "preprocess", "coverage",
+            "residual")
+BENCH_RUNS = {"full": {}, **{a: {"BENCH_ABLATE": a} for a in ARM_TAGS},
+              "dgcnn_bf16": {"BENCH_DGCNN_BF16": "1"},
+              "gather_bf16": {"BENCH_GATHER_BF16": "1"}}
+BENCH_QUALITY = ("residual", "seg_iou", "p_cov", "sk_2")
+JAX_ARMS = {"full": (0.01019, 0.8907, 0.01588, 0.8688),
+            "ms": (0.00317, 1.0, 0.01051, 0.9383),
+            "siou": (0.01019, 1.0, 0.01588, 0.8688),
+            "recon": (0.0, 0.8907, 0.0, 0.0),
+            "splines": (0.00907, 0.8907, 0.01523, 0.8899),
+            "preprocess": (0.01024, 0.8907, 0.01636, 0.8677),
+            "coverage": (0.01019, 0.8907, 0.0, 0.0),
+            "residual": (0.0, 0.8907, 0.01588, 0.8688)}
+BENCH_KERNELS = {"ms": ("K3",), "siou": ("K1tc", "K3"),
+                 "recon": ("K1tc", "K2")}
 # K1's early exit: the tolerance scripts/ab_mean_shift.py A/Bs, a coarse
 # one at which leaving early moves m by more than the limits below, and the
 # seconds a launch of phase 3 may take before the run fails as hung
@@ -2250,6 +2285,115 @@ def main():
 
     phase(seg_run)
 
+    # ---- 7. the port's benches in process: cli.bench at full scale (the
+    # full path, each BENCH_ABLATE arm, both bf16 network knobs), then
+    # cli.bench_train with shortened step counts; every run's launches
+    # counted from zero
+    from parsenet_tpu_torch.cli import bench as cbench
+    from parsenet_tpu_torch.cli import bench_train as cbt
+    bench_l = {k: 0 for k in kernels.LAUNCHES}
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        launches = dict(kernels.LAUNCHES)
+        for k, v in launches.items():
+            bench_l[k] += v
+        return out, launches
+
+    def bench_run():
+        out = report["bench"] = {}
+        t_phase = time.perf_counter()
+        with contextlib.chdir(REPO):
+            for tag, env in BENCH_RUNS.items():
+                rec, launches = counted(lambda: cbench.run(
+                    cbench.settings(env), dev))
+                d = rec["detail"]
+                out[tag] = {"record": rec, "launches": launches}
+                print(f"[7 bench] {tag}: {d['per_shape_ms']:.2f} ms/shape, "
+                      f"{rec['value']:.1f} shapes/hour; residual "
+                      f"{d['residual']:.5f} seg_iou {d['seg_iou']:.5f} p_cov "
+                      f"{d['p_cov']:.5f} sk_2 {d['sk_2']:.5f}; floors applied "
+                      f"{d['floors_applied']}, quality_ok {d['quality_ok']}; "
+                      f"launches K1tc {launches['K1tc']} K1 {launches['K1']} "
+                      f"K2 {launches['K2']} K3 {launches['K3']}", flush=True)
+                check(all(np.isfinite(d[k]) for k in BENCH_QUALITY)
+                      and rec["value"] > 0, f"bench {tag}: finite metrics")
+                arm = env.get("BENCH_ABLATE")
+                if arm is None:
+                    check(d["floors_applied"] and d["quality_ok"]
+                          and d["trained_params"],
+                          f"bench {tag}: floors applied and met")
+                ref = JAX_ARMS.get(arm or "full")
+                if ref is not None:
+                    for k, want in zip(BENCH_QUALITY, ref):
+                        got = d[k]
+                        if want in (0.0, 1.0):
+                            ok = got == want
+                        elif k in ("seg_iou", "sk_2"):
+                            ok = abs(got - want) <= 0.01
+                        else:
+                            ok = abs(got - want) <= 0.1 * want
+                        check(ok, f"bench {tag}: {k} {got:.5f} against the "
+                              f"JAX arm's {want} (0/1 exact, 0.01 absolute, "
+                              "10% relative)")
+                runs_k = BENCH_KERNELS.get(arm, ("K1tc", "K2", "K3"))
+                for kname in ("K1tc", "K2", "K3"):
+                    want_run = kname in runs_k
+                    check((launches[kname] > 0) == want_run,
+                          f"bench {tag}: {kname} launched {launches[kname]} "
+                          f"({'some' if want_run else 'none'} expected)")
+                check(launches["K1"] == 0, f"bench {tag}: no f32 K1")
+            full = out["full"]["record"]["detail"]["per_shape_ms"]
+            print(f"  full path {full:.2f} ms/shape beside phase 4's "
+                  f"{report.get('slice', {}).get('ms_per_shape', 0.0):.2f} "
+                  "in this call", flush=True)
+            out["stage_cost_ms_per_shape"] = {
+                arm: full - out[arm]["record"]["detail"]["per_shape_ms"]
+                for arm in ARM_TAGS}
+            print("  stage costs (full - arm), ms/shape: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in
+                out["stage_cost_ms_per_shape"].items()), flush=True)
+            # cli.bench_train: shortened step counts (the script's own
+            # defaults are 5 seg and 3 e2e timed steps)
+            for tag, fn, env, want in (
+                    ("seg", cbt.bench_seg, {}, ()),
+                    ("seg_bf16", cbt.bench_seg, {"BT_BF16": "1"}, ()),
+                    ("seg_remat", cbt.bench_seg, {"BT_REMAT": "1"}, ()),
+                    ("e2e", cbt.bench_e2e, {}, ("K1", "K2", "K3", "K4")),
+                    ("e2e_fast", cbt.bench_e2e, {"BT_FAST": "1"},
+                     ("K1", "K2", "K3", "K4"))):
+                steps = 2 if tag.startswith("seg") else 3
+                rec, launches = counted(lambda: fn(env, steps=steps,
+                                                   device=dev))
+                d = rec["detail"]
+                out[tag] = {"record": rec, "launches": launches}
+                print(f"[7 bench_train] {tag}: {rec['value']:.3f} shapes/s, "
+                      f"{d['step_ms']:.1f} ms/step, peak "
+                      f"{d['peak_mem_gib'] or 0.0:.2f} GiB, launches {launches}",
+                      flush=True)
+                check(rec["value"] > 0 and d.get("grad_ok") == 1.0,
+                      f"bench_train {tag}: grad_ok 1")
+                for kname in want:
+                    check(launches[kname] > 0,
+                          f"bench_train {tag}: {kname} launched")
+            rec, launches = counted(lambda: cbt.bench_e2e_ablate(
+                {}, steps=5, device=dev))
+            out["e2e_ablate"] = {"record": rec, "launches": launches}
+            print("[7 bench_train] e2e_ablate (5 timed steps an arm): full "
+                  f"{rec['value']:.1f} ms/step; " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in rec["detail"].items()
+                      if k.startswith("cost_")), flush=True)
+            check(all(np.isfinite(v) for k, v in rec["detail"].items()
+                      if k.startswith("cost_")),
+                  "bench_train e2e_ablate: every cost finite")
+        out["launches"] = dict(bench_l)
+        out["seconds"] = time.perf_counter() - t_phase
+        print(f"[7 bench] {out['seconds']:.1f} s, launches {bench_l}",
+              flush=True)
+
+    phase(bench_run)
+
     # ---- 6. kernel times at main-path shapes
     entries = []
 
@@ -2360,8 +2504,9 @@ def main():
               f"{e2e_k1['bound_ms']:.3f} ms (operations)", flush=True)
         for tag, kname, src, n_l in (
                 ("f32", "K1", "ms_iterations_tf32",
-                 f32_l["K1"] + e2e_l["K1"] + proto_l["K1"]),
-                ("bf16", "K1tc", "ms_iterations_tc", launches["K1tc"])):
+                 f32_l["K1"] + e2e_l["K1"] + proto_l["K1"] + bench_l["K1"]),
+                ("bf16", "K1tc", "ms_iterations_tc",
+                 launches["K1tc"] + bench_l["K1tc"])):
             k_ms, p_ms, bound, l_ms = report[f"K1_{tag}_ms"]
             entries.append({
                 "name": src, "route": "cuda",
@@ -2371,6 +2516,7 @@ def main():
                 "max_abs_err": report.get(f"K1_{tag}_max_abs_err"),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": "operations", "library_ms": l_ms, "id": kname,
+                "launches_bench": bench_l[kname],
                 **({"launches_e2e": e2e_l["K1"], "e2e": e2e_k1,
                     "launches_protocol": proto_l["K1"]}
                    if tag == "f32" else {})})
@@ -2537,8 +2683,9 @@ def main():
                 "source": "parsenet_tpu_torch/csrc/auction_assign.cu",
                 "replaces": "parsenet_tpu/ops/pallas_kernels.py:345",
                 "launches": launches[kname] + e2e_l.get(kname, 0)
-                + proto_l.get(kname, 0),
+                + proto_l.get(kname, 0) + bench_l.get(kname, 0),
                 "launches_e2e": e2e_l.get(kname, 0),
+                "launches_bench": bench_l.get(kname, 0),
                 "launches_protocol": proto_l.get(kname, 0), "max_abs_err": err,
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": None, "device_ms": k_dev,
@@ -2619,7 +2766,8 @@ def main():
             "source": "parsenet_tpu_torch/csrc/min_sqdist.cu",
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:418",
             "launches": launches["K3"] + train_l["K3"] + e2e_l["K3"]
-            + proto_l["K3"],
+            + proto_l["K3"] + bench_l["K3"],
+            "launches_bench": bench_l["K3"],
             "max_abs_err": max(err, report.get("K3_train_max_abs_err", 0.0)),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound"], "bound_by": "operations",
@@ -2692,8 +2840,9 @@ def main():
             "name": "min_sqdist_bwd", "route": "cuda",
             "source": "parsenet_tpu_torch/csrc/min_sqdist_bwd.cu",
             "replaces": "parsenet_tpu/ops/pallas_kernels.py:463",
-            "launches": train_l["K4"] + e2e_l["K4"],
+            "launches": train_l["K4"] + e2e_l["K4"] + bench_l["K4"],
             "launches_e2e": e2e_l["K4"], "e2e": e2e_k4,
+            "launches_bench": bench_l["K4"],
             "max_abs_err": report.get("K4_max_abs_err"),
             "ms": k4["ms"], "plain_ms": k4_plain, "bound_ms": k4_bound,
             "bound_by": "bytes", "library_ms": k4["library_ms"],

@@ -14,8 +14,12 @@ Counterpart of parsenet_tpu/eval/pipeline.py:
   eval_preprocess=True path does; then the residual (the spline slots' part
   one batched K3 call a shape) and the reference-protocol coverage (K3).
   spline_fit=None is the JAX package's BENCH_ABLATE=splines arm: every
-  spline segment keeps its geometric fallback.
-* `run_batch`: one batch through both, as bench.py's shape_pipeline does.
+  spline segment keeps its geometric fallback; eval_preprocess=False its
+  `preprocess` arm (each slot sampled with replacement to SPLINE_PTS
+  points, no outlier removal or upsampling); profile_skip its `coverage`
+  and `residual` arms (those sections return zeros).
+* `batch_metrics` / `run_batch`: one batch through both, as bench.py's
+  shape_pipeline does, with its BENCH_ABLATE arms (ABLATE_ARMS).
 * `coverage_metrics`: p_cov, sk_1 and sk_2 of any surface sample
   collection against the input (K3 both ways).
 
@@ -51,6 +55,14 @@ COV_TRIM_EPS = 0.1   # mesh bit-mapping epsilon (reference: test.py:137)
 COV_TRIM_POINTS = 2500  # input subsample the trim test runs against
 
 EVAL_SPLINE_SLOTS = 12  # spline segments decoded a shape, largest first
+SPLINE_PTS = 1536       # rows a slot with eval_preprocess=False
+# bench.py's BENCH_ABLATE sections: ms (GT labels, no clustering or SIOU),
+# siou (clustering runs, SIOU does not), recon (no reconstruction),
+# splines (no spline slots), preprocess (eval_preprocess=False), coverage
+# and residual (profile_skip)
+ABLATE_ARMS = ("ms", "siou", "recon", "splines", "preprocess", "coverage",
+               "residual")
+PROFILE_SKIP = ("coverage", "residual")
 STAGES = ("dgcnn", "mean_shift", "siou", "fits_sampling",
           "spline_preprocess", "spline_decode", "spline_residual", "residual",
           "coverage")
@@ -63,6 +75,14 @@ def _as_tensor(a, device, dtype=None) -> torch.Tensor:
     if not torch.is_tensor(a):
         a = torch.from_numpy(np.array(a))
     return a.to(device=device, dtype=dtype)
+
+
+def _network_input(model, pts, nrm):
+    """What `model` reads: points only where its encoder is mode 0, else
+    points and normals [B, N, 6]."""
+    if getattr(getattr(model, "encoder", None), "mode", 5) != 5:
+        return pts
+    return torch.cat([pts, nrm], dim=-1)
 
 
 class SegmentationPrediction(NamedTuple):
@@ -78,6 +98,7 @@ class SegmentationPrediction(NamedTuple):
 def predict_segmentation(model, points, normals, gt_labels, gt_prim,
                          quantile: float = 0.015, iterations: int = 50,
                          ms_num_samples: int = 5000, ms_bf16: bool = False,
+                         skip_siou: bool = False,
                          subsets: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
                          device=None,
@@ -92,16 +113,16 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
     subsets [B, S]: the bandwidth-statistic rows per shape, else drawn from
     `generator` (see ops.mean_shift._subset_sqdist). ms_bf16: bf16 operands
     in the mean-shift products, the bench's setting (f32 by default).
+    skip_siou (BENCH_ABLATE=siou): clustering runs, the SIOU matching does
+    not, and seg_iou / prim_iou are 1.
     """
     dev = entry_device(device)
     pts = _as_tensor(points, dev, torch.float32)
     nrm = _as_tensor(normals, dev, torch.float32)
     gt_labels = _as_tensor(gt_labels, dev, torch.int64)
     gt_prim = _as_tensor(gt_prim, dev, torch.int64)
-    xyz_only = getattr(getattr(model, "encoder", None), "mode", 5) != 5
     with timer("dgcnn"):
-        emb, prim_logp = model(pts if xyz_only
-                               else torch.cat([pts, nrm], dim=-1))
+        emb, prim_logp = model(_network_input(model, pts, nrm))
         pred_prim = torch.argmax(prim_logp, dim=-1)
         embn = emb / (torch.linalg.norm(emb, dim=-1, keepdim=True) + 1e-12)
     labels, ks = [], []
@@ -115,6 +136,9 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
         labels.append(ms.labels)
         ks.append(ms.num_clusters)
     labels = torch.stack(labels)
+    if skip_siou:
+        one = torch.ones(pts.shape[0], device=dev)
+        return SegmentationPrediction(labels, pred_prim, emb, one, one, ks)
     with timer("siou"):   # draws nothing: one LAP launch for the batch
         seg_iou, prim_iou = siou_matched_segments(
             gt_labels, labels, pred_prim, gt_prim, to_one_hot(labels))
@@ -182,21 +206,47 @@ def slot_segments(seg_type, counts, n_slots: int):
     return slot_seg, spline_ok[slot_seg]
 
 
+def sample_segment_points(points, labels, counts, segs, u):
+    """Fixed-size with-replacement samples of the points of each segment in
+    `segs` (parsenet_tpu/eval/pipeline.py:_sample_segment_points): points
+    [N, 3], labels [N], counts [K_MAX] points a segment, segs [S], u [S, M]
+    uniforms in [0, 1) -> [S, M, 3]. The points are stably sorted by label
+    and draw m of segment s takes its floor(u * count)-th point."""
+    n = points.shape[0]
+    order = torch.sort(labels, stable=True).indices
+    starts = torch.cumsum(counts, 0) - counts
+    pos = (starts[segs][:, None] + torch.floor(
+        u * torch.clamp(counts[segs], min=1.0)[:, None])).to(torch.int64)
+    return points[order[torch.clamp(pos, 0, n - 1)]]
+
+
 def _spline_slots(points, pred_labels, seg_type, counts, spline_fit,
-                  u_pack, u_draw, timer):
+                  slot_uniforms, eval_preprocess, timer):
     """The spline slots of one shape (parsenet_tpu/eval/pipeline.py:
-    212-271), each preprocessed to 1,800 rows and decoded. -> (slot_seg
-    [S], slot_valid [S], surfaces [S, sample_grid^2, 3]); invalid slots are
-    decoded too, and left unused."""
-    slot_seg, slot_valid = slot_segments(seg_type, counts, u_pack.shape[0])
+    212-271), each preprocessed to 1,800 rows (eval_preprocess; the draws
+    slot_uniforms = (u_pack, u_draw)) or sampled with replacement to
+    SPLINE_PTS rows (slot_uniforms = u [S, SPLINE_PTS]) and decoded. ->
+    (slot_seg [S], slot_valid [S], surfaces [S, sample_grid^2, 3]); invalid
+    slots are decoded too, and left unused."""
+    n_slots = (slot_uniforms[0] if eval_preprocess else slot_uniforms
+               ).shape[0]
+    slot_seg, slot_valid = slot_segments(seg_type, counts, n_slots)
     is_closed = seg_type[slot_seg] == 9
     with timer("spline_preprocess"):
-        a_max = torch.where(is_closed, CLOSED_PTS, OPEN_PTS)
-        pts_s = eval_segment_points(
-            points, pred_labels[None, :] == slot_seg[:, None], a_max, u_pack,
-            u_draw, n_out=CLOSED_PTS)
+        if eval_preprocess:
+            a_max = torch.where(is_closed, CLOSED_PTS, OPEN_PTS)
+            pts_s = eval_segment_points(
+                points, pred_labels[None, :] == slot_seg[:, None], a_max,
+                *slot_uniforms, n_out=CLOSED_PTS)
+        else:
+            pts_s = sample_segment_points(points, pred_labels, counts,
+                                          slot_seg, slot_uniforms)
     with timer("spline_decode"):
-        surf_s = spline_fit.batched_eval(pts_s, is_closed)
+        if eval_preprocess:
+            surf_s = spline_fit.batched_eval(pts_s, is_closed)
+        else:
+            surf_s = spline_fit.batched(pts_s, torch.ones(
+                pts_s.shape[:2], device=pts_s.device), is_closed)
     return slot_seg, slot_valid, surf_s
 
 
@@ -305,7 +355,9 @@ def protocol_coverage(points: torch.Tensor, flat_surf: torch.Tensor,
 def reconstruct_shape(points, normals, pred_labels, pred_prim,
                       uniforms: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      spline_fit=None, slot_uniforms=None, device=None,
+                      spline_fit=None, slot_uniforms=None,
+                      eval_preprocess: bool = True, profile_skip=(),
+                      device=None,
                       timer: StageTimer = _NO_TIMER) -> Reconstruction:
     """Eval-mode fitting of one clustered shape.
 
@@ -314,9 +366,16 @@ def reconstruct_shape(points, normals, pred_labels, pred_prim,
     drawn from `generator`. spline_fit: fitting.spline_apply.SplineFit, or
     None for the spline-free arm. slot_uniforms: (u_pack [S, N], u_draw
     [S, min(N, BUF)]) in [0, 1), the packing and final draws of S slots,
-    else drawn from `generator` after the coverage uniforms for
-    EVAL_SPLINE_SLOTS slots.
+    or with eval_preprocess=False the with-replacement draws u [S,
+    SPLINE_PTS]; else drawn from `generator` after the coverage uniforms
+    for EVAL_SPLINE_SLOTS slots. profile_skip: a subset of PROFILE_SKIP
+    whose sections (the residual with the slots' distances, the coverage)
+    are not run and return zeros.
     """
+    bad = set(profile_skip) - set(PROFILE_SKIP)
+    if bad:
+        raise ValueError(f"reconstruct_shape: profile_skip {sorted(bad)} "
+                         f"not in {PROFILE_SKIP}")
     dev = entry_device(device)
     pts = _as_tensor(points, dev, torch.float32)
     nrm = _as_tensor(normals, dev, torch.float32)
@@ -330,39 +389,55 @@ def reconstruct_shape(points, normals, pred_labels, pred_prim,
         uniforms = torch.rand(COV_SAMPLES, generator=generator, device=dev)
     if spline_fit is not None and slot_uniforms is None:
         slot_uniforms = (
-            torch.rand((EVAL_SPLINE_SLOTS, n), generator=generator,
-                       device=dev),
-            torch.rand((EVAL_SPLINE_SLOTS, min(n, BUF)), generator=generator,
+            (torch.rand((EVAL_SPLINE_SLOTS, n), generator=generator,
+                        device=dev),
+             torch.rand((EVAL_SPLINE_SLOTS, min(n, BUF)),
+                        generator=generator, device=dev))
+            if eval_preprocess else
+            torch.rand((EVAL_SPLINE_SLOTS, SPLINE_PTS), generator=generator,
                        device=dev))
     with timer("fits_sampling"):
         params, seg_type, counts, geom_type, surf, area_w = _fit_and_sample(
             pts, nrm, pred_labels, pred_prim)
         valid = counts >= 20                              # reference drop rule
     spline_d = None
+    skip_residual = "residual" in profile_skip
     if spline_fit is not None:
-        u_pack, u_draw = (_as_tensor(u, dev, torch.float32)
-                          for u in slot_uniforms)
+        slot_uniforms = (tuple(_as_tensor(u, dev, torch.float32)
+                               for u in slot_uniforms) if eval_preprocess
+                         else _as_tensor(slot_uniforms, dev, torch.float32))
         slot_seg, slot_valid, surf_s = _spline_slots(
-            pts, pred_labels, seg_type, counts, spline_fit, u_pack, u_draw,
-            timer)
+            pts, pred_labels, seg_type, counts, spline_fit, slot_uniforms,
+            eval_preprocess, timer)
         with timer("spline_decode"):
             surf, area_w = _place_slots(surf, area_w, slot_seg, slot_valid,
                                         surf_s)
-        with timer("spline_residual"):
-            spline_d = _slot_distances(pts, pred_labels, slot_seg,
-                                       slot_valid, surf[slot_seg])
-    with timer("residual"):
-        residual = _residual(pts, pred_labels, params, geom_type, valid,
-                             spline_d)
+        if not skip_residual:
+            with timer("spline_residual"):
+                spline_d = _slot_distances(pts, pred_labels, slot_seg,
+                                           slot_valid, surf[slot_seg])
+    if skip_residual:
+        residual = torch.zeros((), device=dev)
+    else:
+        with timer("residual"):
+            residual = _residual(pts, pred_labels, params, geom_type, valid,
+                                 spline_d)
     with timer("coverage"):
         return _finish_coverage(pts, surf, valid, area_w, residual,
-                                _as_tensor(uniforms, dev))
+                                _as_tensor(uniforms, dev),
+                                "coverage" in profile_skip)
 
 
-def _finish_coverage(points, surf, valid, area_w, residual,
-                     uniforms) -> Reconstruction:
+def _finish_coverage(points, surf, valid, area_w, residual, uniforms,
+                     skip: bool = False) -> Reconstruction:
     """Coverage over every valid segment's area-weighted surface samples
-    (reference segment_utils.py:83-123, test.py:153), then the result."""
+    (reference segment_utils.py:83-123, test.py:153), then the result;
+    zeros with `skip`."""
+    if skip:
+        z = torch.zeros((), device=points.device)
+        return Reconstruction(surf, valid,
+                              torch.arange(K_MAX, device=points.device),
+                              residual, z, z, z, area_w)
     flat_w = (valid[:, None] * area_w).reshape(-1)
     cov, sk_1, sk_2 = protocol_coverage(points, surf.reshape(-1, 3), flat_w,
                                         uniforms)
@@ -371,35 +446,74 @@ def _finish_coverage(points, surf, valid, area_w, residual,
                           cov, sk_1, sk_2, area_w)
 
 
+METRICS = ("residual", "p_cov", "sk_1", "sk_2", "seg_iou", "prim_iou")
+
+
 @torch.no_grad()
-def run_batch(model, points, normals, labels, prim,
-              generator: torch.Generator, ms_bf16: bool = True,
-              spline_fit=None, device=None,
-              timer: StageTimer = _NO_TIMER) -> dict:
+def batch_metrics(model, points, normals, labels, prim,
+                  generator: torch.Generator, ms_bf16: bool = True,
+                  spline_fit=None, ablate=(), device=None,
+                  timer: StageTimer = _NO_TIMER) -> dict:
     """One batch of shapes through the main path, as bench.py's
     shape_pipeline: predict_segmentation then reconstruct_shape per shape,
-    with the spline slots of `spline_fit` (None: the spline-free arm).
-    points/normals [B, N, 3], labels/prim [B, N]; `generator` lives on the
-    run's device and gives every draw. Returns per-shape metric lists."""
+    with the spline slots of `spline_fit` (None: the spline-free arm) and
+    the BENCH_ABLATE arms in `ablate` (ABLATE_ARMS; `splines` is
+    spline_fit=None, which the caller passes). points/normals [B, N, 3],
+    labels/prim [B, N]; `generator` lives on the run's device and gives
+    every draw. Returns {metric: [B] tensor on the device} for METRICS,
+    without a host fetch, and num_clusters, a list of ints. The `ms` arm
+    reconstructs the GT segments with the network's types (seg_iou and
+    prim_iou 1, no clusters); `recon` returns zeros for the
+    reconstruction's metrics."""
+    bad = set(ablate) - set(ABLATE_ARMS)
+    if bad:
+        raise ValueError(f"batch_metrics: ablate {sorted(bad)} not in "
+                         f"{ABLATE_ARMS}")
     dev = entry_device(device)
     pts = _as_tensor(points, dev, torch.float32)
     nrm = _as_tensor(normals, dev, torch.float32)
-    pred = predict_segmentation(
-        model, pts, nrm, labels, prim, ms_bf16=ms_bf16,
-        ms_num_samples=min(5000, pts.shape[1]), generator=generator,
-        device=dev, timer=timer)
-    out = {k: [] for k in ("residual", "p_cov", "sk_1", "sk_2")}
-    for b in range(pts.shape[0]):
-        rec = reconstruct_shape(pts[b], nrm[b], pred.labels[b],
-                                pred.pred_prim[b], generator=generator,
-                                spline_fit=spline_fit, device=dev,
-                                timer=timer)
-        for k in out:
-            out[k].append(float(getattr(rec, k)))
-    out["seg_iou"] = pred.seg_iou.tolist()
-    out["prim_iou"] = pred.prim_iou.tolist()
-    out["num_clusters"] = list(pred.num_clusters)
+    b_n = pts.shape[0]
+    if "ms" in ablate:
+        with timer("dgcnn"):
+            emb, prim_logp = model(_network_input(model, pts, nrm))
+        one = torch.ones(b_n, device=dev)
+        pred = SegmentationPrediction(_as_tensor(labels, dev, torch.int64),
+                                      torch.argmax(prim_logp, dim=-1), emb,
+                                      one, one, [0] * b_n)
+    else:
+        pred = predict_segmentation(
+            model, pts, nrm, labels, prim, ms_bf16=ms_bf16,
+            ms_num_samples=min(5000, pts.shape[1]),
+            skip_siou="siou" in ablate, generator=generator, device=dev,
+            timer=timer)
+    out = {"seg_iou": pred.seg_iou, "prim_iou": pred.prim_iou,
+           "num_clusters": list(pred.num_clusters)}
+    if "recon" in ablate:
+        z = torch.zeros(b_n, device=dev)
+        return {**out, **{k: z for k in METRICS[:4]}}
+    skip = tuple(a for a in ablate if a in PROFILE_SKIP)
+    recs = [reconstruct_shape(pts[b], nrm[b], pred.labels[b],
+                              pred.pred_prim[b], generator=generator,
+                              spline_fit=spline_fit,
+                              eval_preprocess="preprocess" not in ablate,
+                              profile_skip=skip, device=dev, timer=timer)
+            for b in range(b_n)]
+    for k in METRICS[:4]:
+        out[k] = torch.stack([getattr(r, k) for r in recs])
     return out
+
+
+def run_batch(model, points, normals, labels, prim,
+              generator: torch.Generator, ms_bf16: bool = True,
+              spline_fit=None, ablate=(), device=None,
+              timer: StageTimer = _NO_TIMER) -> dict:
+    """`batch_metrics` with every metric fetched to the host: per-shape
+    lists of METRICS and num_clusters."""
+    out = batch_metrics(model, points, normals, labels, prim, generator,
+                        ms_bf16=ms_bf16, spline_fit=spline_fit,
+                        ablate=ablate, device=device, timer=timer)
+    return {k: (v if k == "num_clusters" else v.tolist())
+            for k, v in out.items()}
 
 
 @torch.no_grad()

@@ -19,8 +19,8 @@ reference's per-segment loop as fixed shapes over K_MAX = 50 clusters.
   scaled by lamb, the mean runs over valid segments
   (reference residual_utils.py:333-378).
 
-The JAX package's `ablate=` arms (stage costing for its bench_train
-script) are not ported.
+`ablate` (ABLATE_ARMS) stubs stages for in-context stage costing by
+cli.bench_train, as the JAX package's arms do; no production path sets it.
 """
 from __future__ import annotations
 
@@ -42,6 +42,10 @@ SPLINE_SLOTS = 4  # the reference trains at most 4 spline fits a shape
 SPLINE_LABELS_OPEN = (2, 8)
 SPLINE_LABELS_CLOSED = (0, 6, 7, 9)
 STAGES = ("mean_shift", "matching", "fits", "spline", "chamfer")
+# ms: GT-segment clusters instead of mean-shift and matching; match:
+# identity columns instead of the LAP; fits: zero geometric residuals;
+# siou: no SIOU metric (0)
+ABLATE_ARMS = ("ms", "match", "fits", "siou")
 _NO_TIMER = StageTimer(False)
 
 
@@ -101,6 +105,7 @@ def fitting_loss_shape(points: torch.Tensor, normals: torch.Tensor,
                        ms_num_samples: int = 5000, spline_stride: int = 2,
                        residual_stride: int = 1, siou_stride: int = 1,
                        ms_attempt_iterations: Optional[int] = None,
+                       ablate=(),
                        timer: StageTimer = _NO_TIMER) -> FittingLossOut:
     """Train-time residual loss of ONE shape.
 
@@ -115,23 +120,44 @@ def fitting_loss_shape(points: torch.Tensor, normals: torch.Tensor,
     reference's); residual_stride: of the points residuals and chamfers
     are measured on; siou_stride: of the SIOU metric's points only;
     ms_attempt_iterations: iterations of the escalation attempts (the
-    accepted bandwidth always re-runs `iterations`). `timer` splits the
-    call into STAGES.
+    accepted bandwidth always re-runs `iterations`). ablate: a subset of
+    ABLATE_ARMS. `timer` splits the call into STAGES.
     """
+    bad = set(ablate) - set(ABLATE_ARMS)
+    if bad:
+        raise ValueError(f"fitting_loss_shape: ablate {sorted(bad)} not in "
+                         f"{ABLATE_ARMS}")
     emb = embedding / (torch.linalg.norm(embedding, dim=-1, keepdim=True)
                        + 1e-12)
     gt_oh = to_one_hot(gt_labels)
     gt_count = torch.sum(gt_oh, dim=0)
-    with timer("mean_shift"):
-        ms = guard_mean_shift(emb, quantile, num_samples=ms_num_samples,
-                              iterations=iterations, subset=subset,
-                              generator=generator, differentiable=True,
-                              attempt_iterations=ms_attempt_iterations)
-        centers, valid_k = cluster_centers(ms, emb)
+    if "ms" in ablate:
+        # GT-segment clusters: each centre the mean embedding of its GT
+        # segment, normalised by sqrt(sum + 1e-12) (an empty segment's zero
+        # row has a finite gradient there, linalg.norm's is NaN)
+        centers = (gt_oh.T @ emb) / (gt_count[:, None] + EPS)
+        centers = centers / torch.sqrt(
+            torch.sum(centers * centers, dim=-1, keepdim=True) + 1e-12)
+        valid_k = gt_count > 0
+        ms = MeanShiftResult(emb, torch.zeros(emb.shape[0],
+                                              device=points.device),
+                             gt_labels.to(torch.int64),
+                             torch.tensor(0.1, device=points.device),
+                             int(valid_k.sum()))
+    else:
+        with timer("mean_shift"):
+            ms = guard_mean_shift(emb, quantile, num_samples=ms_num_samples,
+                                  iterations=iterations, subset=subset,
+                                  generator=generator, differentiable=True,
+                                  attempt_iterations=ms_attempt_iterations)
+            centers, valid_k = cluster_centers(ms, emb)
     with timer("matching"):
         pred_oh = to_one_hot(ms.labels)
-        cols = solve_lap((1.0 - relaxed_iou(pred_oh, gt_oh)).detach()).to(
-            torch.int64)
+        if "ms" in ablate or "match" in ablate:
+            cols = torch.arange(K_MAX, device=points.device)
+        else:
+            cols = solve_lap((1.0 - relaxed_iou(pred_oh, gt_oh)).detach()
+                             ).to(torch.int64)
         weights_raw = centers @ emb.T                           # [K, N]
         pred_count = torch.sum(pred_oh, dim=0)
         valid = valid_k & (pred_count > 0) & (gt_count[cols] > 0)
@@ -142,14 +168,17 @@ def fitting_loss_shape(points: torch.Tensor, normals: torch.Tensor,
         p_res = points[::residual_stride]
         gt_mask_res = gt_mask[:, ::residual_stride]
 
-    with timer("fits"):
-        # the geometric fits on the stride-4 subsample (reference 2 x 2)
-        params = fit_all_primitives_shared_points(
-            points[::4], normals[::4], w_norm[:, ::4] + EPS)
-        dists = residual_select(p_res, params,
-                                geom_type_from_label(seg_label))
-        geom_res = torch.sum(dists * gt_mask_res, dim=1) / (
-            torch.sum(gt_mask_res, dim=1) + EPS)
+    if "fits" in ablate:
+        geom_res = torch.zeros(K_MAX, device=points.device)
+    else:
+        with timer("fits"):
+            # the geometric fits on the stride-4 subsample (reference 2 x 2)
+            params = fit_all_primitives_shared_points(
+                points[::4], normals[::4], w_norm[:, ::4] + EPS)
+            dists = residual_select(p_res, params,
+                                    geom_type_from_label(seg_label))
+            geom_res = torch.sum(dists * gt_mask_res, dim=1) / (
+                torch.sum(gt_mask_res, dim=1) + EPS)
 
     is_spline = _isin(seg_label, SPLINE_LABELS_OPEN + SPLINE_LABELS_CLOSED)
     is_closed = _isin(seg_label, SPLINE_LABELS_CLOSED)
@@ -197,6 +226,10 @@ def fitting_loss_shape(points: torch.Tensor, normals: torch.Tensor,
     g_loss = torch.sum(res * geom_f) / (torch.sum(geom_f) + EPS)
     s_loss = torch.sum(res * used_f) / (torch.sum(used_f) + EPS)
 
+    if "siou" in ablate:
+        zero = torch.mean(res).detach() * 0.0
+        return FittingLossOut(total, g_loss, s_loss, zero, zero,
+                              ms.num_clusters)
     with torch.no_grad(), timer("matching"):
         ss = siou_stride
         pp = gt_prim if pred_prim_per_point is None else pred_prim_per_point

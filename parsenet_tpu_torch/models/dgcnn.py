@@ -14,6 +14,15 @@ Everything but the kNN indices is differentiable (the trainers'
 networks); `params_from_jax` / `params_to_jax` carry weights to and from
 the flat flax layout of params/parsenet_e2e.npz, and `init_flax_like`
 draws flax's initialisers.
+
+`dtype=torch.bfloat16` is the JAX package's bf16 network (the trainers'
+half_precision, the bench's BENCH_DGCNN_BF16): parameters stay f32 and are
+cast inside `forward`, so autograd hands f32 gradients to them; every
+Dense runs in bf16, GroupNorm statistics in f32, activations are cast back
+to bf16 after each relu, and the embedding and the type log-probs return
+as f32. `gather_bf16` gathers a bf16 copy of the EdgeConv neighbour
+values; `remat` recomputes each EdgeConv in the backward pass
+(torch.utils.checkpoint) instead of keeping its activations.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import knn as knn_ops
 
@@ -35,6 +45,24 @@ def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor,
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     y = (xg - mean) * torch.rsqrt(var + eps)
     return y.reshape(b, n, c) * weight + bias
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax Dense(dtype=...): input, kernel and bias cast to `dtype`, the
+    product (f32 accumulation) rounded to `dtype`, then the bias added in
+    `dtype`, as flax's dot_general and add round it. For f32 it is
+    layer(x)."""
+    if dtype == torch.float32:
+        return layer(x.to(dtype))
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def norm_relu(gn: "GroupNorm", h: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """relu(GroupNorm(h)) with the statistics in f32, cast to `dtype`."""
+    return torch.relu(gn(h.to(torch.float32))).to(dtype)
 
 
 class GroupNorm(nn.Module):
@@ -64,20 +92,29 @@ class EdgeConv(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int, groups: int,
-                 negative_slope: float = 0.2):
+                 negative_slope: float = 0.2,
+                 dtype: torch.dtype = torch.float32,
+                 gather_bf16: bool = False):
         super().__init__()
         self.groups = groups
         self.negative_slope = negative_slope
+        self.dtype = dtype
+        self.gather_bf16 = gather_bf16
         self.w_diff = nn.Linear(in_features, features, bias=False)
         self.w_center = nn.Linear(in_features, features, bias=False)
         self.GroupNorm_0 = GroupNorm(groups, features)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        # x: [B, N, C], idx: [B, N, k] -> [B, N, features]
-        yd = self.w_diff(x)
-        yx = self.w_center(x) - yd
+        # x: [B, N, C], idx: [B, N, k] -> [B, N, features] in self.dtype;
+        # yd and yx rounded to self.dtype, the statistics taken in f32
+        x = x.to(self.dtype)
+        yd = dense(self.w_diff, x, self.dtype)
+        yx = (dense(self.w_center, x, self.dtype) - yd).to(torch.float32)
+        gsrc = yd.to(torch.bfloat16) if self.gather_bf16 else yd
+        yd = yd.to(torch.float32)
         n, k = x.shape[1], idx.shape[2]
-        g = knn_ops.gather_neighbors(yd, idx)               # [B, N, k, C]
+        g = knn_ops.gather_neighbors(gsrc, idx).to(
+            torch.float32)                                  # [B, N, k, C]
         nb_sum = torch.sum(g, dim=2)
         nb_sq = torch.sum(g * g, dim=2)
         nb_max = torch.amax(g, dim=2)
@@ -98,47 +135,66 @@ class EdgeConv(nn.Module):
         bb = self.GroupNorm_0.bias[None, :] - mean_c * a
         ext = torch.where(a[:, None, :] >= 0, nb_max, nb_min) + yx
         return F.leaky_relu(a[:, None, :] * ext + bb[:, None, :],
-                            self.negative_slope)
+                            self.negative_slope).to(self.dtype)
 
 
 class DGCNNEncoder(nn.Module):
     """mode 0: xyz input; mode 5: xyz + normals with the joint point/normal
-    kNN metric in the first layer."""
+    kNN metric in the first layer. dtype, gather_bf16 and remat: see the
+    module docstring."""
 
-    def __init__(self, mode: int = 0, k: int = 80):
+    def __init__(self, mode: int = 0, k: int = 80,
+                 dtype: torch.dtype = torch.float32,
+                 gather_bf16: bool = False, remat: bool = False):
         super().__init__()
         if mode not in (0, 5):
             raise ValueError(f"DGCNNEncoder: mode {mode} not ported (0, 5)")
         self.mode = mode
         self.k = k
+        self.dtype = dtype
+        self.remat = remat
         c_in = 6 if mode == 5 else 3
-        self.conv1 = EdgeConv(c_in, 64, groups=2)
-        self.conv2 = EdgeConv(64, 64, groups=2)
-        self.conv3 = EdgeConv(64, 128, groups=2)
+        kw = dict(groups=2, dtype=dtype, gather_bf16=gather_bf16)
+        self.conv1 = EdgeConv(c_in, 64, **kw)
+        self.conv2 = EdgeConv(64, 64, **kw)
+        self.conv3 = EdgeConv(64, 128, **kw)
         self.mlp1 = nn.Linear(256, 1024)
         self.bnmlp1 = GroupNorm(8, 1024)
 
+    def _edge(self, conv: EdgeConv, x: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(conv, x, idx, use_reentrant=False)
+        return conv(x, idx)
+
     def forward(self, x: torch.Tensor):
-        # x: [B, N, C_in] -> (global [B, 1024], skip [B, N, 256])
+        # x: [B, N, C_in] -> (global [B, 1024], skip [B, N, 256]) in dtype;
+        # the kNN graphs are built outside the recomputed EdgeConvs
         if self.mode == 5:
             idx = knn_ops.knn_points_normals(x, k1=self.k, k2=self.k)
         else:
             idx = knn_ops.knn(x, k1=self.k, k2=self.k)
-        x1 = self.conv1(x, idx)
-        x2 = self.conv2(x1, knn_ops.knn(x1, k1=self.k, k2=self.k))
-        x3 = self.conv3(x2, knn_ops.knn(x2, k1=self.k, k2=self.k))
+        x1 = self._edge(self.conv1, x, idx)
+        x2 = self._edge(self.conv2, x1, knn_ops.knn(x1, k1=self.k, k2=self.k))
+        x3 = self._edge(self.conv3, x2, knn_ops.knn(x2, k1=self.k, k2=self.k))
         feats = torch.cat([x1, x2, x3], dim=-1)              # [B, N, 256]
-        h = torch.relu(self.bnmlp1(self.mlp1(feats)))
+        h = norm_relu(self.bnmlp1, dense(self.mlp1, feats, self.dtype),
+                      self.dtype)
         return torch.amax(h, dim=1), feats
 
 
 class PrimitivesEmbedding(nn.Module):
-    """Returns (embedding [B, N, emb_size], primitive log-probs [B, N, P])."""
+    """Returns (embedding [B, N, emb_size], primitive log-probs [B, N, P]),
+    both f32 whatever the compute dtype."""
 
     def __init__(self, emb_size: int = 128, num_primitives: int = 10,
-                 mode: int = 0, k: int = 80):
+                 mode: int = 0, k: int = 80,
+                 dtype: torch.dtype = torch.float32,
+                 gather_bf16: bool = False, remat: bool = False):
         super().__init__()
-        self.encoder = DGCNNEncoder(mode=mode, k=k)
+        self.dtype = dtype
+        self.encoder = DGCNNEncoder(mode=mode, k=k, dtype=dtype,
+                                    gather_bf16=gather_bf16, remat=remat)
         self.conv1 = nn.Linear(1024 + 256, 512)
         self.bn1 = GroupNorm(8, 512)
         self.conv2 = nn.Linear(512, 256)
@@ -153,13 +209,17 @@ class PrimitivesEmbedding(nn.Module):
     def forward(self, points: torch.Tensor):
         b, n = points.shape[0], points.shape[1]
         global_feat, skip = self.encoder(points)
+        dt = self.dtype
         h = torch.cat([global_feat[:, None, :].expand(b, n, 1024), skip], -1)
-        h = torch.relu(self.bn1(self.conv1(h)))
-        h_all = torch.relu(self.bn2(self.conv2(h)))
-        e = torch.relu(self.bn_seg_prob1(self.mlp_seg_prob1(h_all)))
-        embedding = self.mlp_seg_prob2(e)
-        p = torch.relu(self.bn_prim_prob1(self.mlp_prim_prob1(h_all)))
-        prim_log_prob = torch.log_softmax(self.mlp_prim_prob2(p), dim=-1)
+        h = norm_relu(self.bn1, dense(self.conv1, h, dt), dt)
+        h_all = norm_relu(self.bn2, dense(self.conv2, h, dt), dt)
+        e = norm_relu(self.bn_seg_prob1, dense(self.mlp_seg_prob1, h_all, dt),
+                      dt)
+        embedding = dense(self.mlp_seg_prob2, e, dt).to(torch.float32)
+        p = norm_relu(self.bn_prim_prob1,
+                      dense(self.mlp_prim_prob1, h_all, dt), dt)
+        prim_log_prob = torch.log_softmax(
+            dense(self.mlp_prim_prob2, p, dt).to(torch.float32), dim=-1)
         return embedding, prim_log_prob
 
 

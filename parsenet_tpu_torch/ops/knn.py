@@ -14,6 +14,13 @@ Two metrics:
     d_n = 2 - 2 <n_i, n_j>, for the first EdgeConv of the points+normals
     model (reference: src/PointNet.py:29-69).
 k2 > k1 gives the reference's dilated selection (top-k2, stride k2 // k1).
+
+bf16 features (the bf16 network's second and third graphs) are scored as
+the JAX package scores them: the inner products of the bf16 values taken
+in f32 (exact products, f32 sums: its preferred_element_type=f32), the
+squared norms summed in f32 and rounded to bf16, as its bf16 jnp.sum
+leaves them. A bf16 `q @ xt` would round every score to bf16, tie far
+more neighbours and build another graph.
 """
 from __future__ import annotations
 
@@ -61,13 +68,19 @@ def knn(x: torch.Tensor, k1: int, k2: Optional[int] = None) -> torch.Tensor:
     k2 = k2 or k1
     n = x.shape[1]
     c = _row_chunks(n)
-    xx = torch.sum(x * x, dim=-1)[:, None, :]                # [B, 1, N]
+    x, low = x.float(), x.dtype == torch.bfloat16
+
+    def sqnorm(v):
+        sq = torch.sum(v * v, dim=-1)
+        return sq.to(torch.bfloat16).float() if low else sq
+
+    xx = sqnorm(x)[:, None, :]                               # [B, 1, N]
     xt = x.transpose(1, 2)
     rows = []
     for s in range(0, n, c):
         q = x[:, s:s + c]
         neg = 2.0 * (q @ xt)
-        neg = neg - torch.sum(q * q, dim=-1, keepdim=True) - xx
+        neg = neg - sqnorm(q)[..., None] - xx
         rows.append(_topk_neighbors(neg, k1, k2))
     return torch.cat(rows, dim=1)
 

@@ -103,6 +103,15 @@ def guard_gradients(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
     return ok
 
 
+def network_kwargs(config) -> dict:
+    """PrimitivesEmbedding's compute settings for a trainer's config:
+    half_precision is the JAX trainers' bf16 network with bf16 neighbour
+    gathers (parameters and GroupNorm statistics stay f32)."""
+    if config.half_precision:
+        return {"dtype": torch.bfloat16, "gather_bf16": True}
+    return {}
+
+
 def to_tensor(a: np.ndarray, dev, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 

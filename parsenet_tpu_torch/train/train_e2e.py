@@ -20,6 +20,7 @@ from {log_dir}/checkpoints/{pretrain_model_path}.npz where that exists, and
 takes its decoders from {log_dir}/checkpoints/{open,closed}_splinenet.npz,
 else from the committed params/. Exact kNN throughout: the JAX package's
 FAST_KNN_RECALL is an approx_max_k setting, which the port does not have.
+Config.half_precision trains the bf16 network (train.state.network_kwargs).
 """
 from __future__ import annotations
 
@@ -37,13 +38,15 @@ from ..core.config import Config, load_config
 from ..core.guards import entry_device
 from ..core.logging import MetricsLogger, setup_logging, snapshot_config
 from ..core.profiling import StageTimer
-from ..fitting.pipeline import fitting_loss_shape
+from ..fitting.pipeline import ABLATE_ARMS as FIT_ARMS
+from ..fitting.pipeline import FittingLossOut, fitting_loss_shape
 from ..fitting.spline_apply import trained_spline_fit
 from ..losses.embedding import draw_triplet, primitive_nll_loss, triplet_loss
 from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
                             params_from_jax, params_to_jax)
 from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
-                    mean_metrics, pack_batch, validation_sample)
+                    mean_metrics, network_kwargs, pack_batch,
+                    validation_sample)
 
 log = logging.getLogger(__name__)
 
@@ -56,6 +59,10 @@ STAGES = ("dgcnn_forward", "embed_losses", "mean_shift", "matching", "fits",
 MS_NUM_SAMPLES = 2048   # the mean-shift bandwidth subset (reference)
 METRICS = ("embed_loss", "prim_loss", "res_loss", "geom_loss", "spline_loss",
            "seg_iou", "prim_iou", "clusters")
+# make_e2e_step's stage-costing arms: netgrad (the network's outputs
+# detached: the fitting loss's backward still runs down to them, the
+# network's does not) and fit (no fitting loss), plus fitting_loss_shape's
+ABLATE_ARMS = ("netgrad", "fit") + FIT_ARMS
 
 
 class E2EDraws(NamedTuple):
@@ -87,7 +94,8 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
                   with_normals: bool = True,
                   spline_stride: int = 2, residual_stride: int = 1,
                   siou_stride: int = 1,
-                  ms_attempt_iterations: Optional[int] = None):
+                  ms_attempt_iterations: Optional[int] = None,
+                  ablate=()):
     """(train_step, eval_step) over `model`, the frozen `spline_fit`
     (fitting.spline_apply.SplineFit) and `optimizer`.
 
@@ -98,28 +106,46 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
     step; it returns the mean metrics and grad_ok. eval_step(x [B, N, C],
     labels, prim, draws) returns one batch's metrics without gradient (its
     accepted mean-shift re-run on K1 f32). The strides and
-    ms_attempt_iterations are fitting_loss_shape's."""
+    ms_attempt_iterations are fitting_loss_shape's. ablate: a subset of
+    ABLATE_ARMS, for cli.bench_train only."""
+    bad = set(ablate) - set(ABLATE_ARMS)
+    if bad:
+        raise ValueError(f"make_e2e_step: ablate {sorted(bad)} not in "
+                         f"{ABLATE_ARMS}")
     params = list(model.parameters())
     fit_kw = dict(spline_fit=spline_fit, quantile=quantile,
                   iterations=iterations, lamb=lamb,
                   ms_num_samples=ms_num_samples, spline_stride=spline_stride,
                   residual_stride=residual_stride, siou_stride=siou_stride,
-                  ms_attempt_iterations=ms_attempt_iterations)
+                  ms_attempt_iterations=ms_attempt_iterations,
+                  ablate=tuple(a for a in ablate if a in FIT_ARMS))
+
+    def fitting(points, normals, emb, labels, prim, pred_prim, draws,
+                timer):
+        if "fit" in ablate:
+            z = torch.zeros((), device=emb.device)
+            return [FittingLossOut(z + torch.mean(emb) * 0.0, z, z, z, z, 0)
+                    for _ in range(emb.shape[0])]
+        return [fitting_loss_shape(
+            points[b], normals[b], emb[b], labels[b], prim[b],
+            subset=None if draws.subset is None else draws.subset[b],
+            pred_prim_per_point=pred_prim[b], timer=timer, **fit_kw)
+            for b in range(emb.shape[0])]
 
     def loss_fn(x, labels, prim, draws: E2EDraws, timer):
         with timer("dgcnn_forward"):
             emb, prim_logp = model(x)
+            if "netgrad" in ablate:
+                emb = emb.detach().requires_grad_()
+                prim_logp = prim_logp.detach().requires_grad_()
         with timer("embed_losses"):
             e_loss = triplet_loss(emb, labels, draws.u_points, draws.u_pairs)
             p_loss = primitive_nll_loss(prim_logp, prim)
             pred_prim = torch.argmax(prim_logp, dim=-1)
         points = x[..., :3]
         normals = x[..., 3:6] if with_normals else points
-        outs = [fitting_loss_shape(
-            points[b], normals[b], emb[b], labels[b], prim[b],
-            subset=None if draws.subset is None else draws.subset[b],
-            pred_prim_per_point=pred_prim[b], timer=timer, **fit_kw)
-            for b in range(x.shape[0])]
+        outs = fitting(points, normals, emb, labels, prim, pred_prim, draws,
+                       timer)
         res_loss = torch.mean(torch.stack([o.loss for o in outs]))
         metrics = {"embed_loss": e_loss, "prim_loss": p_loss,
                    "res_loss": res_loss}
@@ -182,7 +208,7 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
 
     model = PrimitivesEmbedding(emb_size=128, num_primitives=10,
                                 mode=5 if with_normals else 0,
-                                k=config.knn_k)
+                                k=config.knn_k, **network_kwargs(config))
     init_flax_like(model, torch.Generator().manual_seed(config.seed))
     ckpt_dir = os.path.join(config.log_dir, "checkpoints")
     pre_path = os.path.join(ckpt_dir, f"{config.pretrain_model_path}.npz")

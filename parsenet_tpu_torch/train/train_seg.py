@@ -14,7 +14,8 @@ them), and the type head's mIoU.
 The entry reads the config's h5 splits ({dataset}{train,val,test}_data.h5)
 and fails without them; callers with other data pass their own generators
 to `run_training`. The triplet draws come from a torch.Generator; the step
-functions take them as arguments.
+functions take them as arguments. Config.half_precision trains the bf16
+network (train.state.network_kwargs).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
                             params_from_jax, params_to_jax)
 from ..ops.segmentation import mean_iou_per_class
 from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
-                    mean_metrics, pack_batch, validation_sample)
+                    mean_metrics, network_kwargs, pack_batch,
+                    validation_sample)
 
 log = logging.getLogger(__name__)
 
@@ -117,7 +119,7 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
 
     model = PrimitivesEmbedding(emb_size=128, num_primitives=10,
                                 mode=5 if with_normals else 0,
-                                k=config.knn_k)
+                                k=config.knn_k, **network_kwargs(config))
     init_flax_like(model, torch.Generator().manual_seed(config.seed))
     model.to(dev)
     optimizer = make_optimizer(model.parameters(), config.optim, config.lr,

@@ -86,7 +86,10 @@ def test_no_jax_import_in_source(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
-def test_entry_points_refuse_cpu_fallback(tmp_path):
+def test_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
+    # the JAX package's bench.py sets PARSENET_KNN_RECALL when a test
+    # imports it, and the port's bench refuses that knob before the device
+    monkeypatch.delenv("PARSENET_KNN_RECALL", raising=False)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     import importlib
@@ -114,6 +117,13 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
         cli = importlib.import_module(f"parsenet_tpu_torch.cli.{name}")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([str(cfg)])
+    # the benches, before they build anything
+    from parsenet_tpu_torch.cli import bench, bench_train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([])
+    for which in ("seg", "e2e", "e2e_ablate"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_train.main([which])
     from parsenet_tpu_torch.eval.metrics import iou_from_embeddings
     with pytest.raises(RuntimeError, match="no CUDA device"):
         iou_from_embeddings(np.eye(4, dtype=np.float32), np.arange(4))
