@@ -215,6 +215,25 @@ Phases, one line each (plus detail lines):
      calls, and the training call), K4 and their yardsticks also get a
      device time (`graph_ms`: the calls captured in a CUDA graph, events
      around its replays, so the host's pace is out of it).
+  9. (run before 6) the last slice in one NCCL rank of a process group
+     (parallel.mesh.make_mesh; the dry run below spawns one rank a card
+     present): eval.sharded.make_batched_eval on stream a's first two
+     timed batches, its metric sums equal to make_batched_eval(mesh=None)'s
+     bit for bit, K1 bf16, K2 and K3 launched; ring_min_sqdist at 10,000 x
+     10,000 equal to one K3 call bit for bit (K3 launched); ring_knn at
+     10,000 x 128, k 80, equal to knn's indices; the e2e parity step
+     (E2E_PARITY) and both SplineNet parity steps under the group equal to
+     the ungrouped steps bit for bit (metrics, gradients, weights and
+     running statistics), their kernels launched, the gradient all-reduce
+     timed alone; mean_shift (K1 f32 once, within 1e-3 of its plain
+     version; with grad on, autograd and no launch), match on shape 0's
+     clustering (K2 once, equal to the CPU's lap_assign_plain), kmeans,
+     spectral_cluster and cluster("meanshift") on shape 0's embedding
+     (co-membership >= 0.999 with the plain run on the CPU; K1 f32 in the
+     mean-shift branch), prefetch_to_device on 6 batches (equal and in
+     order); `python -m parsenet_tpu_torch.cli.dryrun_multichip N` at N =
+     the cards present, its two lines printed. The times of each, ms from
+     the host clock around synchronised work;
 The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Any failed check exits non-zero without the
 ok line; without a CUDA device it exits 1 at once.
@@ -731,6 +750,363 @@ def rounds_to_assign(kernels, hg, benefit):
         mid = (lo + hi) // 2
         lo, hi = (lo, mid) if done(mid) else (mid + 1, hi)
     return lo
+
+
+# Phase 9: the data-parallel trainers, the sharded inference, the ring ops
+# and the library functions of the port's last slice. Sizes are arguments
+# so that the phase can be rehearsed on the CPU at a small size.
+DP_SIZES = {"eval_batches": 2, "ring_points": 10000, "knn_k": 80,
+            "cluster_rows": 10000, "prefetch_batches": 6}
+
+
+def dp_phase(dev, report, model, spline_fit, shapes, embn, e2e_step_inputs,
+             spline_inputs, sizes=DP_SIZES):
+    """Phase 9 (see the module docstring). shapes: stream a's (pts,
+    normals, labels, prim) and its first two timed batches' slices;
+    e2e_step_inputs: (make_model, batch) for the e2e parity step;
+    spline_inputs: {name: (make_model, batch)} plus nu, nv."""
+    import numpy as np
+    import torch
+    from parsenet_tpu_torch.data.prefetch import prefetch_to_device
+    from parsenet_tpu_torch.eval.sharded import make_batched_eval
+    from parsenet_tpu_torch.models.splinenet import params_to_jax
+    from parsenet_tpu_torch.ops import cluster_alt, kernels
+    from parsenet_tpu_torch.ops import knn as knn_ops
+    from parsenet_tpu_torch.ops import mean_shift as ms
+    from parsenet_tpu_torch.ops.segmentation import match
+    from parsenet_tpu_torch.parallel import ring
+    from parsenet_tpu_torch.parallel.mesh import make_mesh
+    from parsenet_tpu_torch.train import train_e2e as te2e
+    from parsenet_tpu_torch.train import train_spline as tsp
+    from parsenet_tpu_torch.train.state import make_optimizer
+
+    out = report["dp"] = {}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted(fn):
+        """fn() with the launch counts zeroed before and read after: its
+        result, its launches (added to the phase's), its host ms."""
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        ms_ = 1000.0 * (time.perf_counter() - t0)
+        got = dict(kernels.LAUNCHES)
+        for k, v in got.items():
+            total[k] += v
+        return r, got, ms_
+
+    def timed(fn, reps=3):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return 1000.0 * (time.perf_counter() - t0) / reps
+
+    def in_turns(grouped_fn, alone_fn, rounds=3):
+        """Host ms of one call each, grouped and alone, over `rounds`
+        rounds in turns (grouped, alone, alone, grouped, ...)."""
+        ms_ = {True: [], False: []}
+        for r in range(2 * rounds):
+            first = r % 2 == 0
+            for which in ((True, False) if first else (False, True)):
+                sync()
+                t0 = time.perf_counter()
+                (grouped_fn if which else alone_fn)()
+                sync()
+                ms_[which].append(1000.0 * (time.perf_counter() - t0))
+        return (float(np.mean(ms_[True][1:])), float(np.mean(ms_[False][1:])))
+
+    mesh = make_mesh(device=dev)
+    print(f"[9 dp] process group: {mesh.world} rank(s), backend "
+          f"{torch.distributed.get_backend()}, device {mesh.device} "
+          f"(cards present: {cards})", flush=True)
+    check(mesh.world == 1 and torch.distributed.get_backend() == (
+        "nccl" if dev.type == "cuda" else "gloo"),
+        "phase 9 runs in one NCCL rank in this process")
+    try:
+        # (a) sharded inference: stream a's first two timed batches
+        pts, normals, labels, prim, batches = shapes
+        kw = dict(ms_bf16=True, ms_num_samples=5000)
+        grouped = make_batched_eval(model, spline_fit, mesh, **kw)
+        alone = make_batched_eval(model, spline_fit, None, device=dev, **kw)
+        res = {"launches": {k: 0 for k in kernels.LAUNCHES}, "equal": True,
+               "ms_per_shape": [0.0, 0.0], "sums": []}
+        s0 = batches[0]      # warm-up: the network's one-shape batches
+        alone(pts[s0][:1], normals[s0][:1], labels[s0][:1], prim[s0][:1],
+              seed=0)
+        for b, s in enumerate(batches[:sizes["eval_batches"]]):
+            args = (pts[s], normals[s], labels[s], prim[s])
+            seed = 1_000_003 + b
+
+            def run_alone():
+                sync()
+                t0 = time.perf_counter()
+                r = alone(*args, seed=seed)
+                sync()
+                return r, 1000.0 * (time.perf_counter() - t0)
+
+            # in turns: the unsharded program first on even batches
+            if b % 2 == 0:
+                u, u_ms = run_alone()
+            g, launch, g_ms = counted(lambda: grouped(*args, seed=seed))
+            if b % 2 == 1:
+                u, u_ms = run_alone()
+            for k, v in launch.items():
+                res["launches"][k] += v
+            n_b = s.stop - s.start
+            res["ms_per_shape"][0] += g_ms / n_b
+            res["ms_per_shape"][1] += u_ms / n_b
+            res["equal"] &= bool(torch.equal(g, u))
+            res["sums"].append(g.cpu().tolist())
+        nb = min(sizes["eval_batches"], len(batches))
+        res["ms_per_shape"] = [v / nb for v in res["ms_per_shape"]]
+        shapes_n = sum(s.stop - s.start for s in batches[:nb])
+        means = np.sum(res["sums"], 0) / shapes_n
+        out["sharded_eval"] = res
+        print(f"[9 dp] sharded eval, {shapes_n} stream-a shapes: "
+              f"{res['ms_per_shape'][0]:.1f} ms a shape under the group, "
+              f"{res['ms_per_shape'][1]:.1f} without; residual "
+              f"{means[0]:.5f} seg_iou {means[1]:.4f} p_cov {means[2]:.5f} "
+              f"sk_2 {means[3]:.4f}; launches {res['launches']}",
+              flush=True)
+        check(res["equal"], "sharded eval: the metric sums under the group "
+              "equal make_batched_eval(mesh=None)'s bit for bit")
+        check(bool(np.isfinite(res["sums"]).all()) and means[1] > 0.5,
+              f"sharded eval: finite sums, seg_iou {means[1]:.4f} > 0.5")
+        for kname in ("K1tc", "K2", "K3"):
+            check(res["launches"][kname] > 0, f"sharded eval launched "
+                  f"{kname} ({res['launches'][kname]})")
+
+        # (b) ring_min_sqdist at 10,000 x 10,000: one K3 call at W = 1
+        n_r = sizes["ring_points"]
+        q = torch.from_numpy(pts[0][:n_r]).to(dev).contiguous()
+        x = torch.from_numpy(pts[1][:n_r]).to(dev).contiguous()
+        (d, i), launch, _ = counted(lambda: ring.ring_min_sqdist(mesh, q, x))
+        d1, i1 = kernels.min_sqdist_with_idx(q, x)
+        ring_ms = timed(lambda: ring.ring_min_sqdist(mesh, q, x), 10)
+        k3_ms = timed(lambda: kernels.min_sqdist_with_idx(q, x), 10)
+        out["ring_min_sqdist"] = {"launches": launch, "ms": ring_ms,
+                                  "k3_ms": k3_ms}
+        print(f"[9 dp] ring_min_sqdist {n_r}x{n_r}: {ring_ms:.3f} ms, one "
+              f"K3 call {k3_ms:.3f} ms; launches {launch}", flush=True)
+        check(torch.equal(d, d1) and torch.equal(i, i1),
+              "ring_min_sqdist equals one K3 call bit for bit at W = 1")
+        check(launch["K3"] >= 1, f"ring_min_sqdist launched K3 "
+              f"({launch['K3']})")
+
+        # (c) ring_knn at 10,000 x 128 against knn
+        e = embn[:n_r].contiguous()
+        kk = sizes["knn_k"]
+        nb_ring = ring.ring_knn(mesh, e, kk)
+        nb_knn = knn_ops.knn(e[None], kk)[0]
+        same = float((nb_ring.to(torch.int64) == nb_knn).float().mean())
+        # knn's scores, as knn forms them: where the indices differ, the
+        # scores must tie exactly (torch.topk orders ties as it likes,
+        # ring_knn as lax.top_k: the lower index first)
+        eb, c_ = e[None], knn_ops._row_chunks(n_r)
+        xt, xx = eb.transpose(1, 2), torch.sum(eb * eb, dim=-1)[:, None, :]
+        score = torch.cat([(2.0 * (eb[:, r0:r0 + c_] @ xt)
+                            - torch.sum(eb[:, r0:r0 + c_] ** 2, dim=-1)[
+                                ..., None] - xx)[0]
+                           for r0 in range(0, n_r, c_)])
+        tied = torch.equal(torch.gather(score, 1, nb_ring.to(torch.int64)),
+                           torch.gather(score, 1, nb_knn))
+        del score
+        rk_ms = timed(lambda: ring.ring_knn(mesh, e, kk))
+        kn_ms = timed(lambda: knn_ops.knn(e[None], kk))
+        out["ring_knn"] = {"equal_share": same, "ms": rk_ms, "knn_ms": kn_ms,
+                           "scores_equal": tied}
+        print(f"[9 dp] ring_knn {n_r}x{e.shape[1]} k {kk}: {rk_ms:.3f} ms, "
+              f"knn {kn_ms:.3f} ms; indices equal at {100 * same:.4f}%, the "
+              f"rest exact ties of knn's scores: {tied}", flush=True)
+        check(tied, "ring_knn equals knn's indices, up to the order of "
+              "exactly tied scores")
+
+        # (d) the e2e step under the group and without it, bit for bit
+        make_model, fit, batch = e2e_step_inputs
+        m_g, m_u = make_model(), make_model()
+        st_g = te2e.make_e2e_step(m_g, fit, make_optimizer(
+            m_g.parameters(), "adam", 1e-4), mesh=mesh)[0]
+        st_u = te2e.make_e2e_step(m_u, fit, make_optimizer(
+            m_u.parameters(), "adam", 1e-4))[0]
+        mg, launch, _ = counted(lambda: st_g(*batch))
+        mu = st_u(*batch)
+        same_m = all(float(mg[k]) == float(mu[k]) for k in mu)
+        same_p = all(torch.equal(a, b) for a, b in zip(m_g.parameters(),
+                                                        m_u.parameters()))
+        same_g = all(torch.equal(a.grad, b.grad) for a, b in
+                     zip(m_g.parameters(), m_u.parameters()))
+        params = list(m_g.parameters())
+        ar_ms = timed(lambda: mesh.all_reduce_grads(params), 20)
+        n_par = sum(p.numel() for p in params)
+        g_ms, u_ms = in_turns(lambda: st_g(*batch), lambda: st_u(*batch))
+        out["e2e_step"] = {"launches": launch, "grouped_ms": g_ms,
+                           "alone_ms": u_ms, "all_reduce_ms": ar_ms,
+                           "grad_floats": n_par,
+                           "metrics": {k: float(v) for k, v in mg.items()}}
+        print(f"[9 dp] e2e step under the group {g_ms:.1f} ms, without "
+              f"{u_ms:.1f} ms (steps 2-7, in turns); the gradient "
+              f"all-reduce alone ({n_par} floats, {mesh.world} rank) "
+              f"{ar_ms:.3f} ms; launches {launch}", flush=True)
+        check(same_m and same_g and same_p, "e2e step under the group equals "
+              f"the ungrouped step bit for bit (metrics {same_m}, gradients "
+              f"{same_g}, weights after {same_p})")
+        for kname in ("K1", "K2", "K3", "K4"):
+            check(launch[kname] > 0, f"the grouped e2e step launched {kname} "
+                  f"({launch[kname]})")
+
+        # (e) the SplineNet step, open and closed
+        nu, nv = spline_inputs["basis"]
+        for sname in ("open", "closed"):
+            make_sn, sbatch = spline_inputs[sname]
+            a_, b_ = make_sn(), make_sn()
+            closed = sname == "closed"
+            sg = tsp.make_train_step(a_, make_optimizer(a_.parameters()), nu,
+                                     nv, GRID, closed, True, mesh)[0]
+            su = tsp.make_train_step(b_, make_optimizer(b_.parameters()), nu,
+                                     nv, GRID, closed, True)[0]
+            rg, launch, _ = counted(lambda: sg(*sbatch, 1e-3, 0.9))
+            ru = su(*sbatch, 1e-3, 0.9)
+            fa, fb = params_to_jax(a_), params_to_jax(b_)
+            same = (all(float(rg[k]) == float(ru[k]) for k in ru)
+                    and all(np.array_equal(fa[k], fb[k]) for k in fa)
+                    and all(torch.equal(p.grad, r.grad) for p, r in
+                            zip(a_.parameters(), b_.parameters())))
+            g_ms, u_ms = in_turns(lambda: sg(*sbatch, 1e-3, 0.9),
+                                  lambda: su(*sbatch, 1e-3, 0.9))
+            out[f"spline_step_{sname}"] = {"launches": launch,
+                                           "grouped_ms": g_ms,
+                                           "alone_ms": u_ms}
+            print(f"[9 dp] SplineNet {sname} step under the group "
+                  f"{g_ms:.1f} ms, without {u_ms:.1f} ms (steps 2-7, in "
+                  f"turns); launches {launch}", flush=True)
+            check(same, f"SplineNet {sname} step under the group equals the "
+                  "ungrouped step bit for bit (metrics, gradients, weights "
+                  "and running statistics)")
+            check(launch["K3"] > 0 and launch["K4"] > 0,
+                  f"the grouped SplineNet {sname} step launched K3 and K4")
+
+        # (f) library functions on the card
+        rows = sizes["cluster_rows"]
+        e = embn[:rows].contiguous()
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        subset = torch.randperm(rows, generator=g, device=dev)
+        (shifted, bw_m), launch, m_ms = counted(lambda: ms.mean_shift(
+            e, 0.015, num_samples=5000, iterations=10, subset=subset))
+        plain = kernels.mean_shift_iterations_plain(e, bw_m, 10)
+        err = float((shifted - plain).abs().max())
+        out["mean_shift"] = {"launches": launch, "ms": m_ms,
+                             "max_abs_err": err}
+        print(f"[9 dp] mean_shift {rows}x{e.shape[1]}, 10 iterations: "
+              f"{m_ms:.2f} ms, max |d| from K1 f32's plain version {err:.2e};"
+              f" launches {launch}", flush=True)
+        check(err <= K1F_TOL_50 and launch["K1"] == 1,
+              f"mean_shift launched K1 f32 once and stays within "
+              f"{K1F_TOL_50} of its plain version ({err:.2e})")
+        xg = e[:2048].clone().requires_grad_()
+        (sg_, _), launch, _ = counted(lambda: ms.mean_shift(
+            xg, 0.015, num_samples=2048, iterations=10))
+        torch.sum(sg_).backward()
+        check(bool(torch.isfinite(xg.grad).all()) and launch["K1"] == 0,
+              "mean_shift with grad on runs with autograd (no K1 launch), "
+              "finite gradient")
+        guard = ms.guard_mean_shift(e, 0.015, iterations=30, subset=subset)
+        gt = torch.from_numpy(labels[0][:rows]).to(dev)
+        perm, launch, mt_ms = counted(lambda: match(gt, guard.labels))
+        perm_cpu = match(gt.cpu(), guard.labels.cpu())
+        out["match"] = {"launches": launch, "ms": mt_ms}
+        print(f"[9 dp] match on shape 0's clustering ({guard.num_clusters} "
+              f"clusters): {mt_ms:.3f} ms; launches {launch}", flush=True)
+        check(torch.equal(perm.cpu(), perm_cpu) and launch["K2"] == 1,
+              "match launched K2 once and equals lap_assign_plain's "
+              "permutation")
+        k = max(2, min(guard.num_clusters, 20))
+        v0 = torch.from_numpy(np.random.RandomState(4).randn(rows, k)
+                              .astype(np.float32))
+        e_cpu = e.cpu()
+        for method, kw_c in (("kmeans", {"first": 0}),
+                             ("spectral", {"first": 0, "v0": v0}),
+                             ("meanshift", {"subset": subset})):
+            on_dev = {kk_: (vv.to(dev) if torch.is_tensor(vv) else vv)
+                      for kk_, vv in kw_c.items()}
+            on_cpu = {kk_: (vv.cpu() if torch.is_tensor(vv) else vv)
+                      for kk_, vv in kw_c.items()}
+            lab_d, launch, c_ms = counted(lambda: cluster_alt.cluster(
+                e, k, method, **on_dev))
+            t0 = time.perf_counter()
+            lab_c = cluster_alt.cluster(e_cpu, k, method, **on_cpu)
+            c_cpu_ms = 1000.0 * (time.perf_counter() - t0)
+            agree = co_membership(lab_d.cpu().numpy(), lab_c.numpy())
+            out[f"cluster_{method}"] = {"launches": launch, "ms": c_ms,
+                                        "cpu_ms": c_cpu_ms,
+                                        "co_membership": agree}
+            print(f"[9 dp] cluster {method} k {k} on {rows} rows: {c_ms:.1f}"
+                  f" ms on the card, {c_cpu_ms:.1f} ms plain on the CPU, "
+                  f"co-membership {agree:.5f}; launches {launch}", flush=True)
+            check(agree >= 0.999, f"cluster {method}: co-membership "
+                  f"{agree:.5f} >= 0.999 with the CPU's plain run")
+            if method == "meanshift":
+                check(launch["K1"] > 0, "cluster meanshift launched K1 f32")
+
+        # (g) prefetch_to_device: pinned memory, a side stream
+        host = [(pts[s], normals[s], labels[s]) for s in
+                batches[:sizes["prefetch_batches"]]]
+        t0 = time.perf_counter()
+        got = []
+        for batch in prefetch_to_device(iter(host), 2, dev):
+            got.append(tuple(t.clone() for t in batch))
+        sync()
+        pf_ms = 1000.0 * (time.perf_counter() - t0) / len(host)
+        t0 = time.perf_counter()
+        for batch in host:
+            tuple(torch.as_tensor(a).to(dev) for a in batch)
+        sync()
+        plain_ms = 1000.0 * (time.perf_counter() - t0) / len(host)
+        ok = len(got) == len(host) and all(
+            t.device.type == dev.type and torch.equal(
+                t.cpu(), torch.as_tensor(a))
+            for bt, bh in zip(got, host) for t, a in zip(bt, bh))
+        out["prefetch"] = {"ms_per_batch": pf_ms, "plain_ms": plain_ms}
+        print(f"[9 dp] prefetch_to_device {len(host)} batches: "
+              f"{pf_ms:.2f} ms a batch, plain copies {plain_ms:.2f} ms",
+              flush=True)
+        check(ok, "prefetch_to_device: every batch on the device, equal and "
+              "in order")
+    finally:
+        mesh.close()
+
+    # (h) the dry run at N = the cards present, in its own process(es)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "parsenet_tpu_torch.cli.dryrun_multichip",
+           str(cards)]
+    if dev.type != "cuda":
+        cmd += ["--device", "cpu", "--points", "256", "--k", "8"]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("dryrun_multichip")]
+    out["dryrun"] = {"rc": proc.returncode, "lines": lines,
+                     "s": time.perf_counter() - t0}
+    for ln in lines:
+        print(f"  {ln}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:], flush=True)
+    check(proc.returncode == 0 and len(lines) == 2
+          and "nan" not in " ".join(lines),
+          f"dryrun_multichip {cards} ran ({out['dryrun']['s']:.1f} s)")
+    out["launches"] = total
+    print(f"[9 dp] launches of the phase's drive {total}", flush=True)
+    return out
 
 
 def k2_checks(kernels, hg, costs, what, key, max_iter=3000):
@@ -2394,6 +2770,28 @@ def main():
 
     phase(bench_run)
 
+    # ---- 9. (run before 6) data parallelism, sharded inference, the ring
+    # ops and the library functions of the last slice, in one NCCL rank
+    def dp_run():
+        x_, l_, p_, u_p, u_q = parity_batch(E2E_PARITY, dev)
+        e2e_batch = (x_[None], l_[None], p_[None],
+                     [te2e.E2EDraws(u_p, u_q, None)], E2E_PARITY["lr"])
+        spline_in = {"basis": (nu, nv)}
+        for sname in ("open", "closed"):
+            spline_in[sname] = (
+                lambda sname=sname: load_splinenet(
+                    os.path.join(REPO, "params", f"{sname}_splinenet.npz"),
+                    int(sname == "closed"), GRID, device=dev),
+                spline_batches[sname])
+        timed = [slice(b * n_batch, (b + 1) * n_batch)
+                 for b in range(warmup, warmup + iters)]
+        return dp_phase(dev, report, model, spline_fit,
+                        (pts, normals, labels, prim, timed), embn,
+                        (lambda: embedding_model(dev, E2E_PARITY["k"]),
+                         spline_fit, e2e_batch), spline_in)
+
+    phase(dp_run)
+
     # ---- 6. kernel times at main-path shapes
     entries = []
 
@@ -2872,6 +3270,12 @@ def main():
             "bound_by": "operations", "library_ms": k5_lib, "id": "K5"})
 
     phase(kernel_times)
+    # phase 9's launches, counted from zero around each of its drives
+    p9 = report.get("dp", {}).get("launches", {})
+    for entry in entries:
+        key = str(entry.get("id", "")).replace(" ", "_")
+        entry["launches_phase9"] = p9.get(key, 0)
+        entry["launches"] += p9.get(key, 0)
     report["kernels"] = entries
     report["failures"] = FAILURES
     report["seconds"] = time.perf_counter() - t_start

@@ -26,11 +26,19 @@ Knobs (environment), as bench.py reads them: BENCH_POINTS (10000),
 BENCH_BATCH (4), BENCH_ITERS (8), BENCH_STREAM (a | b), BENCH_PARAMS,
 BENCH_SPLINE_DIR, BENCH_MS_BF16 (1), BENCH_DGCNN_BF16 (0: the bf16 network
 of models.dgcnn), BENCH_GATHER_BF16 (0), BENCH_ABLATE (a comma list of
-eval.pipeline.ABLATE_ARMS) and BENCH_WATCHDOG_S (3600; 0 = off: past it
-the bench prints a zero line and exits 2). Knobs the port cannot honour
-raise an error that names them (REFUSED): BENCH_SHARD=1 (several cards),
+eval.pipeline.ABLATE_ARMS), BENCH_SHARD (0) and BENCH_WATCHDOG_S (3600;
+0 = off: past it the bench prints a zero line and exits 2). Knobs the
+port cannot honour raise an error that names them (REFUSED):
 BENCH_PREFLIGHT=1 (the TPU relay's probe) and PARSENET_KNN_RECALL
 (approx_max_k; the port's kNN is exact).
+
+BENCH_SHARD=1 under `torchrun --nproc-per-node=W` (W > 1) shards every
+batch over the W cards (eval.sharded.make_batched_eval: each rank runs its
+slice of the batch, per-shape draws seeded from the batch and the shape's
+index, the metric sums all-reduced); rank 0 prints the one JSON line, its
+shapes counted over all ranks. BENCH_BATCH must divide by W and
+BENCH_ABLATE must be unset. With one rank it is the unsharded run, as
+bench.py's n_dev > 1 guard makes it.
 
 Weights: an explicit BENCH_PARAMS npz (missing or not fitting the network:
 an error), else logs/checkpoints/parsenet_e2e.npz, then
@@ -76,8 +84,6 @@ CHECKPOINTS = ("logs/checkpoints/parsenet_e2e.npz",
                "params/parsenet_e2e.npz")
 # knob -> (values the port refuses, why); None refuses any setting
 REFUSED = {
-    "BENCH_SHARD": (("1",), "sharding the batch over several cards is not "
-                    "ported (multi-GPU comes last)"),
     "BENCH_PREFLIGHT": (("1",), "the relay preflight probes a remote TPU"),
     "PARSENET_KNN_RECALL": (None, "approx_max_k is a TPU primitive; the "
                             "port's kNN is exact"),
@@ -103,9 +109,18 @@ def settings(env: Mapping[str, str] = os.environ) -> dict:
     if bad:
         raise ValueError(f"bench: BENCH_ABLATE arms {bad} unknown; allowed: "
                          f"{ABLATE_ARMS}")
+    world = int(env.get("WORLD_SIZE", "1"))
+    shard = env.get("BENCH_SHARD", "0") == "1" and world > 1
+    batch = int(env.get("BENCH_BATCH", "4"))
+    if env.get("BENCH_SHARD", "0") == "1" and ablate:
+        raise ValueError("bench: BENCH_SHARD and BENCH_ABLATE are exclusive")
+    if shard and batch % world:
+        raise ValueError(f"bench: BENCH_BATCH={batch} not divisible by "
+                         f"{world} ranks (BENCH_SHARD=1)")
     return {
         "points": int(env.get("BENCH_POINTS", "10000")),
-        "batch": int(env.get("BENCH_BATCH", "4")),
+        "batch": batch,
+        "shard": shard,
         "iters": int(env.get("BENCH_ITERS", "8")),
         "stream": stream,
         "params": env.get("BENCH_PARAMS") or None,
@@ -202,7 +217,13 @@ def stream_shapes(stream: str, n_shapes: int, n_points: int):
 def run(cfg: dict, device=None) -> dict:
     """One bench run with settings `cfg` (see `settings`) on `device` (None
     = "cuda") -> the JSON record, with "quality_ok" in its detail."""
-    dev = entry_device(device)
+    mesh = None
+    if cfg.get("shard"):
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(device=device)
+        dev = mesh.device
+    else:
+        dev = entry_device(device)
     floors = json.load(open(FLOORS_PATH))["bench"]
     ablate = cfg["ablate"]
     model = PrimitivesEmbedding(
@@ -219,9 +240,17 @@ def run(cfg: dict, device=None) -> dict:
         cfg["stream"], (WARMUP + iters) * b_n, cfg["points"])
     gen = torch.Generator(device=dev)
     gen.manual_seed(GENERATOR_SEED)
+    if mesh is not None:
+        from ..eval.sharded import make_batched_eval
+        batched = make_batched_eval(model, spline_fit, mesh,
+                                    ms_bf16=cfg["ms_bf16"],
+                                    ms_num_samples=min(5000, cfg["points"]))
 
     def one_batch(b):
         s = slice(b * b_n, (b + 1) * b_n)
+        if mesh is not None:       # batch b's shapes seeded (b, index)
+            return batched(pts[s], normals[s], labels[s], prim[s],
+                           seed=GENERATOR_SEED * 1_000_003 + b)
         out = batch_metrics(model, pts[s], normals[s], labels[s], prim[s],
                             gen, ms_bf16=cfg["ms_bf16"],
                             spline_fit=spline_fit, ablate=ablate, device=dev)
@@ -242,6 +271,8 @@ def run(cfg: dict, device=None) -> dict:
     while pending:
         sums += pending.pop(0).cpu().numpy()
     dt = time.perf_counter() - t0
+    if mesh is not None:
+        mesh.close()
 
     n_shapes = iters * b_n
     residual, seg_iou, p_cov, sk_2 = (float(v) / n_shapes for v in sums)
@@ -256,7 +287,8 @@ def run(cfg: dict, device=None) -> dict:
         "unit": "shapes/hour",
         "detail": {
             "per_shape_ms": 1000.0 * dt / n_shapes,
-            "batch": b_n, "devices": 1, "num_points": cfg["points"],
+            "batch": b_n, "devices": 1 if mesh is None else mesh.world,
+            "sharded": mesh is not None, "num_points": cfg["points"],
             "stream": cfg["stream"], "residual": residual,
             "seg_iou": seg_iou, "p_cov": p_cov, "sk_2": sk_2,
             "trained_params": trained, "params_src": params_src,
@@ -298,6 +330,8 @@ def main(argv=None, device=None) -> None:
     rec = run(cfg, args.device)
     if timer is not None:
         timer.cancel()
+    if int(os.environ.get("RANK", "0")) != 0:
+        return
     print(json.dumps(rec), flush=True)
     d = rec["detail"]
     if not d["quality_ok"]:

@@ -78,10 +78,17 @@ def _triplet_one_shape(emb: torch.Tensor, labels: torch.Tensor,
 
 def triplet_loss(embedding: torch.Tensor, labels: torch.Tensor,
                  u_points: torch.Tensor, u_pairs: torch.Tensor,
-                 margin: float = 1.0) -> torch.Tensor:
+                 margin: float = 1.0, mesh=None) -> torch.Tensor:
     """Batch triplet loss. embedding [B, N, D] raw network output
     (normalised here), labels [B, N] int GT segment ids in [0, S_MAX),
-    u_points / u_pairs the draws (module docstring) -> scalar."""
+    u_points / u_pairs the draws (module docstring) -> scalar.
+
+    With a parallel.mesh.Mesh the batch is this rank's slice of a global
+    one, and the normaliser, the count of multi-segment shapes, is the
+    global batch's (summed over the ranks): the rank's loss is world x its
+    shapes' share of the global loss, so the mean over the ranks (of the
+    losses and of their gradients) is the one-rank loss of the global
+    batch, however the multi-segment shapes fall among the ranks."""
     emb = embedding / (torch.linalg.norm(embedding, dim=-1, keepdim=True)
                        + 1e-12)
     losses, multi = [], []
@@ -91,8 +98,10 @@ def triplet_loss(embedding: torch.Tensor, labels: torch.Tensor,
         losses.append(loss)
         multi.append(float(m))
     multi_f = torch.tensor(multi, dtype=torch.float32, device=emb.device)
-    return torch.sum(torch.stack(losses) * multi_f) / (torch.sum(multi_f)
-                                                       + 1e-8)
+    total, count = torch.sum(torch.stack(losses) * multi_f), torch.sum(multi_f)
+    if mesh is not None:
+        total, count = total * float(mesh.world), mesh.all_sum(count)
+    return total / (count + 1e-8)
 
 
 def primitive_nll_loss(prim_log_prob: torch.Tensor,

@@ -12,6 +12,16 @@ bn5-bn7, as flax's fast variance is), and the running averages take it with
 flax's momentum 0.9 (torch's 0.1) and the biased variance (torch's running
 variance takes the unbiased one). So the statistics and the buffer updates
 are written out here. Layout is the JAX package's: points-major [B, N, C].
+
+Under data parallelism (`sync_batch_norm`) each BatchNorm in training
+gathers the global batch's rows of what its moments are taken over (every
+rank's slice, in batch order, with autograd through the gather) and takes
+the moments as one rank would of the whole batch, in the same order: so
+every rank normalises by the global batch's moments and keeps the same
+running statistics, as the JAX package's BatchNorm over a sharded batch
+does. The sums are not split over the ranks: E[x^2] - E[x]^2 cancels, and
+f32 sums taken in another order move the variance, and the gradients
+through it, by far more than their own rounding.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import knn as knn_ops
+from ..parallel.mesh import gather_batch
 
 MOMENTUM = 0.9  # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 EPS = 1e-5
@@ -40,6 +51,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh = None   # a parallel.mesh.Mesh: moments over its ranks
 
     def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
@@ -49,8 +61,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean,
+            xg = gather_batch(self.mesh, x)
+            mean = torch.mean(xg, dim=axes)
+            var = torch.clamp(torch.mean(xg * xg, dim=axes) - mean * mean,
                               min=0.0)
             self.update(mean, var)
         else:
@@ -88,7 +101,9 @@ class EdgeConvBN(nn.Module):
             nb_sq = torch.sum(g * g, dim=2)
             e_sum = nb_sum + k * yx
             e_sq = nb_sq + 2.0 * yx * nb_sum + k * yx * yx
-            cnt = b * n * k
+            e_sum = gather_batch(self.bn.mesh, e_sum)
+            e_sq = gather_batch(self.bn.mesh, e_sq)
+            cnt = e_sum.shape[0] * n * k
             mean = torch.sum(e_sum, dim=(0, 1)) / cnt
             var = torch.sum(e_sq, dim=(0, 1)) / cnt - mean * mean
             self.bn.update(mean, var)
@@ -140,6 +155,15 @@ class SplineNet(nn.Module):
         g = torch.relu(self.bn7(self.conv7(g)))
         out = torch.tanh(self.conv8(g))
         return out.reshape(points.shape[0], self.grid * self.grid, 3)
+
+
+def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
+    """Every BatchNorm of `model` takes its training moments over the
+    global batch of `mesh`'s ranks (None: over this process's batch)."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.mesh = mesh
+    return model
 
 
 def _flax_key(name: str) -> str:

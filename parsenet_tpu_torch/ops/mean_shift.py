@@ -11,6 +11,11 @@ torch.no_grad(), by K1 f32 once more. In both, the bandwidth-escalation
 guard (double the quantile until at most max_clusters clusters; reference
 src/mean_shift.py:81-96) is a Python loop. The [N, N] products of `nms` and
 `_subset_sqdist` are plain matmuls.
+
+kernel="epanechnikov" (the JAX package runs it through XLA only: its
+Pallas branch is gaussian-only) is plain PyTorch with autograd in every
+branch. `mean_shift` is the pass without NMS or the guard (reference
+src/mean_shift.py:19-43 with nms=False), differentiable in X.
 """
 from __future__ import annotations
 
@@ -128,6 +133,59 @@ def mean_shift_iterations_autograd(X: torch.Tensor, bandwidth: torch.Tensor,
     return m
 
 
+def mean_shift_iterations_epanechnikov(X: torch.Tensor, bandwidth,
+                                       iterations: int) -> torch.Tensor:
+    """`iterations` Epanechnikov mean-shift steps of X [N, D] (the JAX
+    package's XLA branch): K = relu(0.75 (1 - (2 - 2 m.X) / b^2)), m <-
+    normalize((K @ X) / (rowsum K + 1e-12)), from m = X; plain PyTorch
+    with autograd."""
+    b2 = bandwidth ** 2
+    m = X
+    for _ in range(iterations):
+        k = torch.relu(0.75 * (1.0 - (2.0 - 2.0 * (m @ X.T)) / b2))
+        new_m = (k @ X) / (torch.sum(k, dim=1, keepdim=True) + 1e-12)
+        m = new_m / (torch.linalg.norm(new_m, dim=1, keepdim=True) + 1e-12)
+    return m
+
+
+KERNELS = ("gaussian", "epanechnikov")
+
+
+def _shift(X: torch.Tensor, bandwidth, iterations: int, kernel: str,
+           bf16_dots: bool = False, tol: float = 0.0) -> torch.Tensor:
+    """`iterations` steps of `kernel`: gaussian with autograd where X
+    carries a gradient (mean_shift_iterations_autograd), else K1;
+    Epanechnikov always in plain PyTorch."""
+    if kernel == "epanechnikov":
+        return mean_shift_iterations_epanechnikov(X, bandwidth, iterations)
+    if torch.is_grad_enabled() and X.requires_grad:
+        return mean_shift_iterations_autograd(X, bandwidth, iterations)
+    return mean_shift_iterations(X, bandwidth, iterations,
+                                 bf16_dots=bf16_dots, tol=tol)
+
+
+def mean_shift(X: torch.Tensor, quantile: float, num_samples: int = 5000,
+               iterations: int = 10, kernel: str = "gaussian",
+               subset: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
+    """One mean-shift pass without NMS (parsenet_tpu/ops/mean_shift.py:
+    308-315): X [N, D] unit rows -> (shifted [N, D], bandwidth). The
+    bandwidth is the mean over a row subset (subset / generator, as
+    `_subset_sqdist`) of the sqrt of each row's k-th smallest squared
+    distance, k = quantile x S (at least 1, below S), without gradient.
+    Differentiable in X: with grad mode on and X requiring grad the
+    gaussian iterations run with autograd, else on K1 f32."""
+    if kernel not in KERNELS:
+        raise ValueError(f"mean_shift: unknown kernel {kernel!r}")
+    with torch.no_grad():
+        d = _subset_sqdist(X.detach(), num_samples, subset, generator)
+        s = d.shape[0]
+        k = int(np.clip(int(np.float32(quantile) * np.float32(s)), 1, s - 1))
+        kth = torch.kthvalue(d, k, dim=1).values
+        bw = torch.clamp(torch.mean(guard_sqrt(kth, 1e-6)), min=0.003)
+    return _shift(X, bw, iterations, kernel), bw
+
+
 def guard_mean_shift(X: torch.Tensor, quantile: float,
                      num_samples: int = 5000, iterations: int = 10,
                      max_clusters: int = 49, max_doublings: int = 8,
@@ -135,8 +193,8 @@ def guard_mean_shift(X: torch.Tensor, quantile: float,
                      subset: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
                      tol: float = 0.0, differentiable: bool = False,
-                     attempt_iterations: Optional[int] = None
-                     ) -> MeanShiftResult:
+                     attempt_iterations: Optional[int] = None,
+                     kernel: str = "gaussian") -> MeanShiftResult:
     """Mean-shift with bandwidth escalation until <= max_clusters clusters.
 
     X: [N, D] unit rows. subset / generator: the random subset for the
@@ -157,17 +215,24 @@ def guard_mean_shift(X: torch.Tensor, quantile: float,
     mean_shift_iterations_autograd when grad mode is on, else by K1 f32
     (the attempt itself when it ran as many iterations). NMS reads the
     detached result, so `shifted` is the only differentiable output.
+
+    kernel: "gaussian" (K1) or "epanechnikov" (plain PyTorch in the
+    attempts and the re-run, f32, tol = 0).
     """
+    if kernel not in KERNELS:
+        raise ValueError(f"guard_mean_shift: unknown kernel {kernel!r}")
     if differentiable and (bf16_dots or tol):
         raise ValueError("guard_mean_shift: the differentiable branch runs "
                          "f32 attempts at tol = 0")
+    if kernel != "gaussian" and (bf16_dots or tol):
+        raise ValueError("guard_mean_shift: bf16_dots and tol are K1's "
+                         "(gaussian) settings")
     X_ng = X.detach()
     att_iters = (attempt_iterations or iterations) if differentiable \
         else iterations
 
     def attempt(bw):
-        shifted = mean_shift_iterations(X_ng, bw, att_iters,
-                                        bf16_dots=bf16_dots, tol=tol)
+        shifted = _shift(X_ng, bw, att_iters, kernel, bf16_dots, tol)
         center_mask, labels, k = nms(shifted, X_ng, bw)
         return shifted, center_mask, labels, k
 
@@ -186,9 +251,11 @@ def guard_mean_shift(X: torch.Tensor, quantile: float,
                               and not torch.is_grad_enabled()):
         return MeanShiftResult(shifted, center_mask, labels, bw, k)
     if torch.is_grad_enabled():
-        shifted = mean_shift_iterations_autograd(X, bw, iterations)
+        shifted = (mean_shift_iterations_autograd(X, bw, iterations)
+                   if kernel == "gaussian" else
+                   mean_shift_iterations_epanechnikov(X, bw, iterations))
     else:
-        shifted = mean_shift_iterations(X_ng, bw, iterations)
+        shifted = _shift(X_ng, bw, iterations, kernel)
     with torch.no_grad():
         center_mask, labels, k = nms(shifted.detach(), X_ng, bw)
     return MeanShiftResult(shifted, center_mask, labels, bw, k)

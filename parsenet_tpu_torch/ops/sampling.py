@@ -126,3 +126,39 @@ def sample_cone(apex, axis, theta, seg_points, seg_mask, grid: int = 32):
             + torch.sin(TH)[..., None] * b2[:, None])
     return (apex[:, None] + S[..., None] * a[:, None]
             + rad[..., None] * ring)
+
+
+def sample_torus(axis, center, major_radius, minor_radius, grid: int = 32):
+    """grid x grid samples over each whole torus [K] (axis [K, 3], center
+    [K, 3], radii [K]; reference src/primitive_forward.py:427-450): the
+    tube angle v around the ring angle u, row-major in (u, v) ->
+    [K, grid^2, 3]."""
+    a = _normalize(axis)
+    b1, b2 = _orthonormal_frame(a)
+    U, V = _mesh(_ring(grid, a.device)[None].expand(a.shape[0], -1),
+                 _ring(grid, a.device)[None])
+    ring = (torch.cos(U)[..., None] * b1[:, None]
+            + torch.sin(U)[..., None] * b2[:, None])
+    r = major_radius[:, None] + minor_radius[:, None] * torch.cos(V)
+    z = minor_radius[:, None] * torch.sin(V)
+    return center[:, None] + r[..., None] * ring + z[..., None] * a[:, None]
+
+
+def project_to_plane(points: torch.Tensor, normal: torch.Tensor,
+                     offset) -> torch.Tensor:
+    """points [N, 3] projected onto the plane <normal, p> = offset
+    (reference src/fitting_utils.py:625-634)."""
+    a = normal / (torch.linalg.norm(normal) + EPS)
+    prj = points - (points @ a)[:, None] * a[None, :]
+    return prj + a[None, :] * offset
+
+
+def project_to_point_cloud(points: torch.Tensor,
+                           surface: torch.Tensor) -> torch.Tensor:
+    """Each point of points [N, 3] snapped to its nearest sample of surface
+    [M, 3] (reference src/fitting_utils.py:637-643): the first argmin of
+    the squared distance, K3 (kernels.min_sqdist_with_idx) on the card."""
+    from .kernels import min_sqdist_with_idx
+    with torch.no_grad():
+        idx = min_sqdist_with_idx(points.contiguous(), surface.contiguous())[1]
+    return surface[idx.to(torch.int64)]

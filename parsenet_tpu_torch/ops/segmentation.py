@@ -29,6 +29,18 @@ def relaxed_iou(pred_one_hot: torch.Tensor,
     return dots / (norms_p + norms_g - dots + 1e-7)
 
 
+def match(gt_labels: torch.Tensor, pred_labels: torch.Tensor,
+          k_max: int = K_MAX) -> torch.Tensor:
+    """Minimum-cost matching of predicted to GT segments on the relaxed-IoU
+    cost 1 - IoU (parsenet_tpu/ops/segmentation.py:39-49; reference
+    src/fitting_utils.py:362-376): labels [N] (or [B, N]) -> col_of_row
+    [k_max] (or [B, k_max]) int32, the GT segment matched to predicted
+    segment r. solve_lap: one K2 launch on the card."""
+    cost = 1.0 - relaxed_iou(to_one_hot(pred_labels, k_max),
+                             to_one_hot(gt_labels, k_max))
+    return solve_lap(cost)
+
+
 def remap_primitive_labels(prim: torch.Tensor) -> torch.Tensor:
     """Eval taxonomy collapse {0, 6, 7} -> 9 (closed spline), 8 -> 2 (open)."""
     p = torch.where((prim == 0) | (prim == 6) | (prim == 7), 9, prim)

@@ -18,6 +18,7 @@ from typing import Callable, Iterable, Iterator, NamedTuple
 import numpy as np
 import torch
 
+from ..core.logging import MetricsLogger
 from ..core.profiling import StageTimer
 
 NO_TIMER = StageTimer(False)
@@ -59,12 +60,20 @@ def grad_finite(grads: Iterable[torch.Tensor]) -> torch.Tensor:
 
 def accumulated_step(optimizer: torch.optim.Optimizer,
                      params: list[torch.nn.Parameter], micro, n_micro: int,
-                     keys, lr: float, timer) -> dict:
+                     keys, lr: float, timer, mesh=None) -> dict:
     """One step of the segmentation and e2e trainers: micro(a) -> (loss,
     metrics) of micro-batch a; the gradients of the n_micro losses summed
     and averaged (the JAX trainers' lax.scan), zeroed where any entry is
     not finite (`guard_gradients`), then the optimizer steps at lr. Returns
-    the mean of each metric in `keys` and grad_ok."""
+    the mean of each metric in `keys` and grad_ok.
+
+    With a parallel.mesh.Mesh each micro-batch is this rank's slice of the
+    global one: the averaged gradients are then averaged over the ranks
+    (one all-reduce) before the guard, so a non-finite entry on any rank
+    zeroes the step on every rank, and the metrics are averaged over the
+    ranks too: the one-rank step of the global batch, where each loss and
+    metric is a mean over equal shares of it (the triplet loss's
+    normaliser is made global in losses.embedding.triplet_loss)."""
     set_lr(optimizer, lr)
     optimizer.zero_grad(set_to_none=True)
     acc = None
@@ -79,11 +88,25 @@ def accumulated_step(optimizer: torch.optim.Optimizer,
         for p in params:
             if p.grad is not None:
                 p.grad.mul_(inv)
+        if mesh is not None:
+            mesh.all_reduce_grads(params)
         ok = guard_gradients(params)
         optimizer.step()
     out = {k: v * inv for k, v in acc.items()}
+    out = rank_mean(out, mesh)
     out["grad_ok"] = ok.to(torch.float32)
     return out
+
+
+def rank_mean(metrics: dict, mesh) -> dict:
+    """Each 0-d metric averaged over the ranks of `mesh` (one all-reduce;
+    unchanged without a mesh)."""
+    if mesh is None:
+        return metrics
+    keys = list(metrics)
+    vals = mesh.all_mean(torch.stack([metrics[k].to(torch.float32)
+                                      for k in keys]))
+    return {k: vals[i] for i, k in enumerate(keys)}
 
 
 def guard_gradients(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
@@ -159,3 +182,31 @@ def mean_metrics(metrics: list) -> tuple:
     floats = [{k: float(v) for k, v in m.items()} for m in metrics]
     return floats, {k: float(np.mean([m[k] for m in floats]))
                     for k in floats[0]}
+
+
+class _NoLog:
+    def log(self, step, metrics) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def rank_logger(mesh, log_dir: str, name: str):
+    """The MetricsLogger on rank 0 (or without a mesh); a logger that
+    writes nothing on the other ranks."""
+    if mesh is None or mesh.is_main:
+        return MetricsLogger(log_dir, name)
+    return _NoLog()
+
+
+def trainer_mesh(config, mesh, device):
+    """(mesh, device, owned) of a trainer's run: the caller's mesh, else
+    parallel.mesh.make_mesh(config.num_devices) on `device` (None =
+    "cuda"), which the trainer closes when it ends (owned). The device is
+    the rank's."""
+    if mesh is not None:
+        return mesh, mesh.device, False
+    from ..parallel.mesh import make_mesh
+    mesh = make_mesh(config.num_devices, device=device)
+    return mesh, mesh.device, mesh.owns

@@ -35,8 +35,7 @@ import torch
 
 from ..core.checkpoint import load_npz_params, save_npz_params
 from ..core.config import Config, load_config
-from ..core.guards import entry_device
-from ..core.logging import MetricsLogger, setup_logging, snapshot_config
+from ..core.logging import setup_logging, snapshot_config
 from ..core.profiling import StageTimer
 from ..fitting.pipeline import ABLATE_ARMS as FIT_ARMS
 from ..fitting.pipeline import FittingLossOut, fitting_loss_shape
@@ -44,9 +43,11 @@ from ..fitting.spline_apply import trained_spline_fit
 from ..losses.embedding import draw_triplet, primitive_nll_loss, triplet_loss
 from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
                             params_from_jax, params_to_jax)
+from ..data.prefetch import lookahead
+from ..parallel.mesh import replicate, shard_batch
 from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
-                    mean_metrics, network_kwargs, pack_batch,
-                    validation_sample)
+                    mean_metrics, network_kwargs, pack_batch, rank_logger,
+                    rank_mean, trainer_mesh, validation_sample)
 
 log = logging.getLogger(__name__)
 
@@ -57,6 +58,7 @@ FAST_STEP_KNOBS = dict(spline_stride=4, residual_stride=2, siou_stride=2,
 STAGES = ("dgcnn_forward", "embed_losses", "mean_shift", "matching", "fits",
           "spline", "chamfer", "backward", "optimizer")
 MS_NUM_SAMPLES = 2048   # the mean-shift bandwidth subset (reference)
+SAVE_EVERY = 2000       # optimizer steps between periodic saves
 METRICS = ("embed_loss", "prim_loss", "res_loss", "geom_loss", "spline_loss",
            "seg_iou", "prim_iou", "clusters")
 # make_e2e_step's stage-costing arms: netgrad (the network's outputs
@@ -95,7 +97,7 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
                   spline_stride: int = 2, residual_stride: int = 1,
                   siou_stride: int = 1,
                   ms_attempt_iterations: Optional[int] = None,
-                  ablate=()):
+                  ablate=(), mesh=None):
     """(train_step, eval_step) over `model`, the frozen `spline_fit`
     (fitting.spline_apply.SplineFit) and `optimizer`.
 
@@ -107,7 +109,10 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
     labels, prim, draws) returns one batch's metrics without gradient (its
     accepted mean-shift re-run on K1 f32). The strides and
     ms_attempt_iterations are fitting_loss_shape's. ablate: a subset of
-    ABLATE_ARMS, for cli.bench_train only."""
+    ABLATE_ARMS, for cli.bench_train only. With a parallel.mesh.Mesh the
+    batches and draws are this rank's slices of global ones and both
+    return the global batch's metrics (train.state.accumulated_step; every
+    e2e metric but the triplet loss is a mean over shapes)."""
     bad = set(ablate) - set(ABLATE_ARMS)
     if bad:
         raise ValueError(f"make_e2e_step: ablate {sorted(bad)} not in "
@@ -139,7 +144,8 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
                 emb = emb.detach().requires_grad_()
                 prim_logp = prim_logp.detach().requires_grad_()
         with timer("embed_losses"):
-            e_loss = triplet_loss(emb, labels, draws.u_points, draws.u_pairs)
+            e_loss = triplet_loss(emb, labels, draws.u_points, draws.u_pairs,
+                                  mesh=mesh)
             p_loss = primitive_nll_loss(prim_logp, prim)
             pred_prim = torch.argmax(prim_logp, dim=-1)
         points = x[..., :3]
@@ -162,11 +168,11 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
         return accumulated_step(
             optimizer, params,
             lambda a: loss_fn(x[a], labels[a], prim[a], draws[a], timer),
-            x.shape[0], METRICS, lr, timer)
+            x.shape[0], METRICS, lr, timer, mesh)
 
     @torch.no_grad()
     def eval_step(x, labels, prim, draws):
-        return loss_fn(x, labels, prim, draws, NO_TIMER)[1]
+        return rank_mean(loss_fn(x, labels, prim, draws, NO_TIMER)[1], mesh)
 
     return train_step, eval_step
 
@@ -178,7 +184,7 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
                  pretrained: Optional[dict] = None, spline_fit=None,
                  lamb: float = 0.1, val_shapes: Optional[int] = 16,
                  checkpoint: bool = True, device=None,
-                 timer: StageTimer = NO_TIMER) -> TrainResult:
+                 timer: StageTimer = NO_TIMER, mesh=None) -> TrainResult:
     """The fine-tuning loop. Generators yield numpy (points [B, N, 3],
     labels, normals, prim), the training one B = batch_size x accum
     shapes; without them the config's h5 splits are read (data.abc
@@ -189,12 +195,31 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     validation sample (the same shapes, points and draws every epoch)
     whose seg IoU picks the weights to save; with `checkpoint`, each
     epoch that improves it writes {log_dir}/checkpoints/{model_path}.npz
-    (every epoch without a validation sample). device None = "cuda";
-    `timer` splits each step into STAGES. Returns a TrainResult whose
-    epochs hold the means, val_res_loss and val_seg_iou."""
+    (every epoch without a validation sample), and every SAVE_EVERY
+    optimizer steps {model_path}_step{step}.npz is written beside it
+    (train_e2e.py:353 of the JAX package). device None = "cuda"; `timer`
+    splits each step into STAGES. Returns a TrainResult whose epochs hold
+    the means, val_res_loss and val_seg_iou.
+
+    Data parallel over config.num_devices ranks as train_seg.run_training
+    (a caller's `mesh` instead): each rank keeps its slice of the global
+    batches and draws; the validation seg IoU that picks the weights is the
+    global sample's on every rank; rank 0 alone logs and writes files."""
+    mesh, dev, own_mesh = trainer_mesh(config, mesh, device)
+    try:
+        return _train(config, train_gen, val_gen, steps_per_epoch,
+                      points_per_shape, pretrained, spline_fit, lamb,
+                      val_shapes, checkpoint, dev, timer, mesh)
+    finally:
+        if own_mesh:
+            mesh.close()
+
+
+def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
+           pretrained, spline_fit, lamb, val_shapes, checkpoint, dev, timer,
+           mesh) -> TrainResult:
     from ..data.abc import ABCDataset
 
-    dev = entry_device(device)
     num_accum = max(config.accum, 1)
     with_normals = config.mode == 5
     if train_gen is None:
@@ -215,10 +240,14 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     if pretrained is None and config.pretrain_model_path \
             and os.path.exists(pre_path):
         pretrained = load_npz_params(pre_path)
-        log.info("loaded pretrained segmentation weights from %s", pre_path)
+        if mesh.is_main:
+            log.info("loaded pretrained segmentation weights from %s",
+                     pre_path)
     if pretrained is not None:
         model.load_state_dict(params_from_jax(pretrained, model))
     model.to(dev)
+    replicate(mesh, model)
+    train_gen = lookahead(train_gen)
     if spline_fit is None:
         spline_fit = trained_spline_fit(config.log_dir, config.grid_size,
                                         dev)
@@ -227,13 +256,14 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     knobs = dict(FAST_STEP_KNOBS) if config.fast_step else {}
     train_step, eval_step = make_e2e_step(model, spline_fit, optimizer,
                                           lamb=lamb,
-                                          with_normals=with_normals, **knobs)
+                                          with_normals=with_normals,
+                                          mesh=mesh, **knobs)
     host_rng = np.random.RandomState(config.seed + 1)
     gen = torch.Generator(device=dev)
     gen.manual_seed(config.seed + 3)
     steps_per_epoch = steps_per_epoch or max(
         config.num_train // (config.batch_size * num_accum), 1)
-    mlog = MetricsLogger(config.log_dir, config.model_path)
+    mlog = rank_logger(mesh, config.log_dir, config.model_path)
     ckpt_path = os.path.join(ckpt_dir, f"{config.model_path}.npz")
 
     def pack(points, labels, normals, prim, rng):
@@ -242,11 +272,12 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
 
     val_batches = []
     if val_gen is not None and val_shapes:
-        val_batches = validation_sample(
+        val_batches = [shard_batch(mesh, vb) for vb in validation_sample(
             val_gen, val_shapes, config.batch_size, config.seed, pack,
             lambda x, g: (draw_e2e(x.shape[0], x.shape[1], MS_NUM_SAMPLES,
-                                   g, dev),), dev)
+                                   g, dev),), dev)]
     best_val_siou = -float("inf")
+    step = 0
 
     steps, epochs = [], []
     for epoch in range(config.num_epochs):
@@ -257,30 +288,37 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
             shape = (num_accum, x.shape[0] // num_accum)
             draws = [draw_e2e(shape[1], x.shape[1], MS_NUM_SAMPLES, gen, dev)
                      for _ in range(num_accum)]
-            agg.append(train_step(x.reshape(*shape, *x.shape[1:]),
-                                  lab.reshape(*shape, -1),
-                                  pr.reshape(*shape, -1), draws, config.lr,
-                                  timer))
+            agg.append(train_step(
+                *(shard_batch(mesh, t, axis=1) for t in (
+                    x.reshape(*shape, *x.shape[1:]), lab.reshape(*shape, -1),
+                    pr.reshape(*shape, -1))),
+                [shard_batch(mesh, d) for d in draws], config.lr, timer))
+            step += 1
+            if checkpoint and mesh.is_main and step % SAVE_EVERY == 0:
+                save_npz_params(os.path.join(
+                    ckpt_dir, f"{config.model_path}_step{step}.npz"),
+                    params_to_jax(model))
         step_floats, tr = mean_metrics(agg)
         steps += step_floats
         if val_batches:
             val = mean_metrics([eval_step(*vb) for vb in val_batches])[1]
             tr["val_res_loss"] = val["res_loss"]
             tr["val_seg_iou"] = val["seg_iou"]
-        log.info("epoch %d res %.4f (geom %.4f spline %.4f) embed %.4f "
-                 "siou %.3f piou %.3f clusters %.1f%s (%.1fs)", epoch,
-                 tr["res_loss"], tr["geom_loss"], tr["spline_loss"],
-                 tr["embed_loss"], tr["seg_iou"], tr["prim_iou"],
-                 tr["clusters"],
-                 (f" | val res {tr['val_res_loss']:.4f} siou "
-                  f"{tr['val_seg_iou']:.3f}" if val_batches else ""),
-                 time.time() - t0)
+        if mesh.is_main:
+            log.info("epoch %d res %.4f (geom %.4f spline %.4f) embed %.4f "
+                     "siou %.3f piou %.3f clusters %.1f%s (%.1fs)", epoch,
+                     tr["res_loss"], tr["geom_loss"], tr["spline_loss"],
+                     tr["embed_loss"], tr["seg_iou"], tr["prim_iou"],
+                     tr["clusters"],
+                     (f" | val res {tr['val_res_loss']:.4f} siou "
+                      f"{tr['val_seg_iou']:.3f}" if val_batches else ""),
+                     time.time() - t0)
         epochs.append(tr)
         mlog.log(epoch, tr)
         improved = not val_batches or tr["val_seg_iou"] > best_val_siou
         if val_batches and improved:
             best_val_siou = tr["val_seg_iou"]
-        if checkpoint and improved:
+        if checkpoint and improved and mesh.is_main:
             save_npz_params(ckpt_path, params_to_jax(model))
     mlog.close()
     return TrainResult(model, steps, epochs)

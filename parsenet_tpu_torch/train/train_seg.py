@@ -31,16 +31,17 @@ import torch
 from ..core.checkpoint import (PlateauScheduler, load_train_state,
                                save_train_state)
 from ..core.config import Config, load_config
-from ..core.guards import entry_device
-from ..core.logging import MetricsLogger, setup_logging, snapshot_config
+from ..core.logging import setup_logging, snapshot_config
 from ..core.profiling import StageTimer
 from ..losses.embedding import draw_triplet, primitive_nll_loss, triplet_loss
 from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
                             params_from_jax, params_to_jax)
 from ..ops.segmentation import mean_iou_per_class
+from ..data.prefetch import lookahead
+from ..parallel.mesh import replicate, shard_batch
 from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
-                    mean_metrics, network_kwargs, pack_batch,
-                    validation_sample)
+                    mean_metrics, network_kwargs, pack_batch, rank_logger,
+                    rank_mean, trainer_mesh, validation_sample)
 
 log = logging.getLogger(__name__)
 
@@ -49,7 +50,7 @@ METRICS = ("embed_loss", "prim_loss", "miou")
 
 
 def make_step_fns(model: PrimitivesEmbedding,
-                  optimizer: torch.optim.Optimizer):
+                  optimizer: torch.optim.Optimizer, mesh=None):
     """(train_step, eval_step) over `model` and `optimizer`.
 
     train_step(points [A, B, N, C], labels [A, B, N], prim [A, B, N],
@@ -58,12 +59,14 @@ def make_step_fns(model: PrimitivesEmbedding,
     them all where any entry is not finite (the optimizer still steps) and
     takes one step; it returns the micro-batches' mean metrics and grad_ok.
     eval_step(points [B, N, C], labels, prim, u_points, u_pairs) returns the
-    metrics without gradient."""
+    metrics without gradient. With a parallel.mesh.Mesh the batches are
+    this rank's slices of global ones, and both return the global batch's
+    metrics (train.state.accumulated_step)."""
     params = list(model.parameters())
 
     def loss_fn(points, labels, prim, u_points, u_pairs):
         emb, prim_logp = model(points)
-        e_loss = triplet_loss(emb, labels, u_points, u_pairs)
+        e_loss = triplet_loss(emb, labels, u_points, u_pairs, mesh=mesh)
         p_loss = primitive_nll_loss(prim_logp, prim)
         return e_loss + p_loss, {
             "embed_loss": e_loss, "prim_loss": p_loss,
@@ -76,11 +79,12 @@ def make_step_fns(model: PrimitivesEmbedding,
                 return loss_fn(points[a], labels[a], prim[a], u_points[a],
                                u_pairs[a])
         return accumulated_step(optimizer, params, micro, points.shape[0],
-                                METRICS, lr, timer)
+                                METRICS, lr, timer, mesh)
 
     @torch.no_grad()
     def eval_step(points, labels, prim, u_points, u_pairs):
-        return loss_fn(points, labels, prim, u_points, u_pairs)[1]
+        return rank_mean(loss_fn(points, labels, prim, u_points, u_pairs)[1],
+                         mesh)
 
     return train_step, eval_step
 
@@ -90,7 +94,7 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
                  steps_per_epoch: Optional[int] = None,
                  points_per_shape: int = 7000, val_shapes: int = 32,
                  checkpoint: bool = True, device=None,
-                 timer: StageTimer = NO_TIMER) -> TrainResult:
+                 timer: StageTimer = NO_TIMER, mesh=None) -> TrainResult:
     """The training loop. Generators yield numpy (points [B, N, 3], labels
     [B, N], normals, prim); the training one B = batch_size x accum
     shapes. Without them the config's h5 splits are read (data.abc
@@ -101,10 +105,28 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     so far writes {log_dir}/checkpoints/{model_path}.npz and the optimizer
     state beside it; preload_model resumes from them. device None =
     "cuda"; `timer` splits each step into STAGES. Returns a TrainResult
-    whose epochs hold the means, val_embed_loss and lr."""
+    whose epochs hold the means, val_embed_loss and lr.
+
+    Data parallel over config.num_devices ranks (parallel.mesh.make_mesh;
+    a caller's `mesh` instead): every rank reads the same global batches
+    and draws, keeps its slice of the batch axis and averages gradients
+    and metrics over the ranks, so a step equals the one-rank step of the
+    global batch; rank 0 alone logs and writes checkpoints. The training
+    generator runs behind data.prefetch.lookahead."""
+    mesh, dev, own_mesh = trainer_mesh(config, mesh, device)
+    try:
+        return _train(config, train_gen, val_gen, steps_per_epoch,
+                      points_per_shape, val_shapes, checkpoint, dev, timer,
+                      mesh)
+    finally:
+        if own_mesh:
+            mesh.close()
+
+
+def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
+           val_shapes, checkpoint, dev, timer, mesh) -> TrainResult:
     from ..data.abc import ABCDataset
 
-    dev = entry_device(device)
     num_accum = max(config.accum, 1)
     with_normals = config.mode == 5
     if train_gen is None:
@@ -122,6 +144,7 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
                                 k=config.knn_k, **network_kwargs(config))
     init_flax_like(model, torch.Generator().manual_seed(config.seed))
     model.to(dev)
+    train_gen = lookahead(train_gen)
     optimizer = make_optimizer(model.parameters(), config.optim, config.lr,
                                config.weight_decay)
     ckpt_path = os.path.join(config.log_dir, "checkpoints",
@@ -133,8 +156,10 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
             flat, opt_state, step = restored
             model.load_state_dict(params_from_jax(flat, model))
             optimizer.load_state_dict(opt_state)
-            log.info("resumed from step %d", step)
-    train_step, eval_step = make_step_fns(model, optimizer)
+            if mesh.is_main:
+                log.info("resumed from step %d", step)
+    replicate(mesh, model)
+    train_step, eval_step = make_step_fns(model, optimizer, mesh)
     sched = PlateauScheduler(config.lr, patience=config.patience, factor=0.5)
     steps_per_epoch = steps_per_epoch or max(
         config.num_train // (config.batch_size * num_accum), 1)
@@ -143,15 +168,15 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     gen.manual_seed(config.seed + 2)
     best = float("inf")
     lr = config.lr
-    mlog = MetricsLogger(config.log_dir, config.model_path)
+    mlog = rank_logger(mesh, config.log_dir, config.model_path)
 
     def pack(points, labels, normals, prim, rng):
         return pack_batch(points, labels, normals, prim, rng,
                           points_per_shape, with_normals, dev)
 
-    val_batches = validation_sample(
+    val_batches = [shard_batch(mesh, vb) for vb in validation_sample(
         val_gen, val_shapes, config.batch_size, config.seed, pack,
-        lambda x, g: draw_triplet(x.shape[0], g, dev), dev)
+        lambda x, g: draw_triplet(x.shape[0], g, dev), dev)]
 
     steps, epochs = [], []
     for epoch in range(config.num_epochs):
@@ -161,21 +186,26 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
             micro = (num_accum, config.batch_size)
             batch = (*pack(*next(train_gen), host_rng),
                      *draw_triplet(num_accum * config.batch_size, gen, dev))
-            agg.append(train_step(*(t.reshape(*micro, *t.shape[1:])
-                                    for t in batch), lr, timer))
+            agg.append(train_step(*(
+                shard_batch(mesh, t.reshape(*micro, *t.shape[1:]), axis=1)
+                for t in batch), lr, timer))
             step += 1
         val_emb = mean_metrics([eval_step(*vb)
                                 for vb in val_batches])[1]["embed_loss"]
         lr = sched.step(val_emb)
         step_floats, tr = mean_metrics(agg)
         steps += step_floats
-        log.info("epoch %d embed %.4f prim %.4f miou %.3f | val embed %.4f "
-                 "lr %.2e (%.1fs)", epoch, tr["embed_loss"], tr["prim_loss"],
-                 tr["miou"], val_emb, lr, time.time() - t0)
+        if mesh.is_main:
+            log.info("epoch %d embed %.4f prim %.4f miou %.3f | val embed "
+                     "%.4f lr %.2e (%.1fs)", epoch, tr["embed_loss"],
+                     tr["prim_loss"], tr["miou"], val_emb, lr,
+                     time.time() - t0)
         epochs.append({**tr, "val_embed_loss": val_emb, "lr": lr})
         mlog.log(epoch, epochs[-1])
-        if checkpoint and val_emb < best:
+        improved = val_emb < best
+        if improved:
             best = val_emb
+        if checkpoint and improved and mesh.is_main:
             save_train_state(ckpt_path, params_to_jax(model),
                              optimizer.state_dict(), step)
     mlog.close()

@@ -33,16 +33,19 @@ import torch
 
 from ..core.checkpoint import PlateauScheduler, save_npz_params
 from ..core.config import Config, load_config
-from ..core.guards import entry_device
-from ..core.logging import MetricsLogger, setup_logging, snapshot_config
+from ..core.logging import setup_logging, snapshot_config
 from ..core.profiling import StageTimer
 from ..losses.spline import (control_points_permute_closed_reg_loss,
                              control_points_permute_reg_loss, laplacian_loss,
                              spline_reconstruction_loss,
                              spline_reconstruction_loss_one_sided)
-from ..models.splinenet import SplineNet, init_flax_like, params_to_jax
+from ..data.prefetch import lookahead
+from ..models.splinenet import (SplineNet, init_flax_like, params_to_jax,
+                                sync_batch_norm)
 from ..ops.bspline import uniform_knot_bspline
-from .state import make_optimizer, set_lr
+from ..parallel.mesh import replicate, shard_batch
+from .state import (make_optimizer, rank_logger, rank_mean, set_lr,
+                    trainer_mesh)
 
 log = logging.getLogger(__name__)
 
@@ -72,14 +75,22 @@ def rescale_outputs(scales: torch.Tensor, output: torch.Tensor,
 
 def make_train_step(model: SplineNet, optimizer: torch.optim.Optimizer,
                     nu: torch.Tensor, nv: torch.Tensor, grid: int,
-                    closed: bool, anisotropic: bool):
+                    closed: bool, anisotropic: bool, mesh=None):
     """(train_step, eval_step) over `model` and `optimizer`.
 
     train_step(points, cps, scales, lr, loss_weight, timer) runs one
     optimizer step in train mode (BatchNorm takes batch moments and updates
     its running statistics) and returns the step's {loss, cd, l_reg, lap},
     taken before the update. eval_step(points, cps, scales) returns the
-    two-sided sqrt chamfer in eval mode."""
+    two-sided sqrt chamfer in eval mode.
+
+    With a parallel.mesh.Mesh the batches are this rank's slices of global
+    ones: BatchNorm takes the global batch's moments (models.splinenet.
+    sync_batch_norm), the gradients are averaged over the ranks before the
+    update and the metrics are the global batch's, so a step is the
+    one-rank step of the global batch (each loss is a mean over shapes)."""
+    sync_batch_norm(model, mesh)
+    params = list(model.parameters())
     reg_fn = (control_points_permute_closed_reg_loss if closed
               else control_points_permute_reg_loss)
 
@@ -106,9 +117,11 @@ def make_train_step(model: SplineNet, optimizer: torch.optim.Optimizer,
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
         with timer("optimizer"):
+            if mesh is not None:
+                mesh.all_reduce_grads(params)
             optimizer.step()
-        return {"loss": loss.detach(), "cd": cd.detach(),
-                "l_reg": l_reg.detach(), "lap": lap.detach()}
+        return rank_mean({"loss": loss.detach(), "cd": cd.detach(),
+                          "l_reg": l_reg.detach(), "lap": lap.detach()}, mesh)
 
     @torch.no_grad()
     def eval_step(points, cps, scales):
@@ -117,7 +130,7 @@ def make_train_step(model: SplineNet, optimizer: torch.optim.Optimizer,
         if anisotropic:
             out, points, cps = rescale_outputs(scales, out, points, cps)
         cd, _ = spline_reconstruction_loss(nu, nv, out, points, sqrt=True)
-        return cd
+        return cd if mesh is None else mesh.all_mean(cd)
 
     return train_step, eval_step
 
@@ -135,17 +148,35 @@ def run_training(config: Config, closed: bool = False,
                  point_buckets=POINT_BUCKETS,
                  checkpoint: bool = True,
                  device=None,
-                 timer: StageTimer = _NO_TIMER) -> TrainResult:
+                 timer: StageTimer = _NO_TIMER, mesh=None) -> TrainResult:
     """The training loop. Generators yield numpy (points, cps, scales,
     rotations); without them the config's h5 is read
     (`data.splines.SplineDataset`). Each step's point count is a
     bucket drawn by RandomState(config.seed), capped at the batch's. With
     `checkpoint`, every epoch whose validation chamfer is the best so far
     writes {log_dir}/checkpoints/{model_path}.npz. device None = "cuda";
-    `timer` splits each step into STAGES."""
+    `timer` splits each step into STAGES.
+
+    Data parallel over config.num_devices ranks as train_seg.run_training
+    (a caller's `mesh` instead): every rank reads the same global batches
+    and point counts and keeps its slice of the batch axis; BatchNorm and
+    the gradients are synchronised (make_train_step); rank 0 alone logs
+    and writes the checkpoint."""
+    mesh, dev, own_mesh = trainer_mesh(config, mesh, device)
+    try:
+        return _train(config, closed, train_gen, val_gen, steps_per_epoch,
+                      val_steps, anisotropic, point_buckets, checkpoint, dev,
+                      timer, mesh)
+    finally:
+        if own_mesh:
+            mesh.close()
+
+
+def _train(config, closed, train_gen, val_gen, steps_per_epoch, val_steps,
+           anisotropic, point_buckets, checkpoint, dev, timer,
+           mesh) -> TrainResult:
     from ..data.splines import SplineDataset
 
-    dev = entry_device(device)
     grid = config.grid_size
     nu_np, nv_np = uniform_knot_bspline(grid, grid, 3, 3, 40)
     nu, nv = _to(nu_np, dev), _to(nv_np, dev)
@@ -163,9 +194,11 @@ def run_training(config: Config, closed: bool = False,
     model = SplineNet(grid=grid, k=10, mode=1 if closed else 0)
     init_flax_like(model, torch.Generator().manual_seed(config.seed))
     model.to(dev)
+    replicate(mesh, model)
+    train_gen = lookahead(train_gen)
     optimizer = make_optimizer(model.parameters(), config.optim, config.lr)
     train_step, eval_step = make_train_step(model, optimizer, nu, nv, grid,
-                                            closed, anisotropic)
+                                            closed, anisotropic, mesh)
     sched = PlateauScheduler(config.lr, patience=10, factor=0.5, min_lr=3e-5)
     ckpt_path = (os.path.join(config.log_dir, "checkpoints",
                               f"{config.model_path}.npz")
@@ -175,7 +208,7 @@ def run_training(config: Config, closed: bool = False,
     host_rng = np.random.RandomState(config.seed)
     best_cd = float("inf")
     lr = config.lr
-    mlog = MetricsLogger(config.log_dir, config.model_path)
+    mlog = rank_logger(mesh, config.log_dir, config.model_path)
     steps, epochs = [], []
 
     for epoch in range(config.num_epochs):
@@ -186,14 +219,16 @@ def run_training(config: Config, closed: bool = False,
             npts = point_buckets[host_rng.randint(len(point_buckets))]
             npts = min(npts, points.shape[1])
             tr_metrics.append(train_step(
-                _to(points[:, :npts], dev), _to(cps, dev), _to(scales, dev),
+                *shard_batch(mesh, (_to(points[:, :npts], dev), _to(cps, dev),
+                                    _to(scales, dev))),
                 lr, config.loss_weight, timer))
         val_cds = []
         for _ in range(val_steps):
             points, cps, scales, _ = next(val_gen)
             n = min(point_buckets[-1], points.shape[1])
-            val_cds.append(float(eval_step(_to(points[:, :n], dev),
-                                           _to(cps, dev), _to(scales, dev))))
+            val_cds.append(float(eval_step(*shard_batch(
+                mesh, (_to(points[:, :n], dev), _to(cps, dev),
+                       _to(scales, dev))))))
         val_cd = float(np.mean(val_cds))
         lr = sched.step(val_cd)
         step_floats = [{k: float(v) for k, v in m.items()}
@@ -201,14 +236,16 @@ def run_training(config: Config, closed: bool = False,
         steps += step_floats
         tr = {k: float(np.mean([m[k] for m in step_floats]))
               for k in step_floats[0]}
-        log.info("epoch %d loss %.5f cd %.5f reg %.5f val_cd %.5f lr %.2e "
-                 "(%.1fs)", epoch, tr["loss"], tr["cd"], tr["l_reg"], val_cd,
-                 lr, time.time() - t0)
+        if mesh.is_main:
+            log.info("epoch %d loss %.5f cd %.5f reg %.5f val_cd %.5f lr "
+                     "%.2e (%.1fs)", epoch, tr["loss"], tr["cd"], tr["l_reg"],
+                     val_cd, lr, time.time() - t0)
         epochs.append({**tr, "val_cd": val_cd, "lr": lr})
         mlog.log(epoch, epochs[-1])
         if ckpt_path is not None and val_cd < best_cd:
             best_cd = val_cd
-            save_npz_params(ckpt_path, params_to_jax(model))
+            if mesh.is_main:
+                save_npz_params(ckpt_path, params_to_jax(model))
     mlog.close()
     return TrainResult(model, steps, epochs)
 

@@ -94,7 +94,7 @@ def test_npz_fallback_then_seeded_init(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("env, knob", [
     ({"BENCH_STREAM": "c"}, "BENCH_STREAM"),
-    ({"BENCH_SHARD": "1"}, "BENCH_SHARD"),
+    ({"BENCH_SHARD": "1", "BENCH_ABLATE": "ms"}, "BENCH_SHARD"),
     ({"BENCH_PREFLIGHT": "1"}, "BENCH_PREFLIGHT"),
     ({"PARSENET_KNN_RECALL": "0.85"}, "PARSENET_KNN_RECALL"),
     ({"BENCH_ABLATE": "ms,nope"}, "BENCH_ABLATE"),
