@@ -234,8 +234,37 @@ Phases, one line each (plus detail lines):
      order); `python -m parsenet_tpu_torch.cli.dryrun_multichip N` at N =
      the cards present, its two lines printed. The times of each, ms from
      the host clock around synchronised work;
+  10. (run before 6) the route from a fine-tune to shipped weights, every
+     launch of the phase counted from zero (finetune_phase, sizes in
+     FT_SIZES): (a) cli.finetune_e2e's loop (finetune_config at full width:
+     mode 5, k 80, embedding 128, 8,000 of 10,000 points, batch 1, accum
+     5, lr 5e-5) from params/parsenet_e2e.npz and the shipped decoders, 1
+     epoch of 2 optimizer steps on make_shape_batch(RandomState(40)), its
+     fixed validation sample 4 shapes of RandomState(41) at val_points
+     10,000; run twice from one seed: every step's metrics and the
+     validation equal, the checkpoint loads back bit for bit, and a
+     standalone eval_step of the trained network on the rebuilt 10,000-
+     point sample gives val_seg_iou and val_res_loss bit for bit; ms a
+     step (CUDA events); (b) cli.export_params of that checkpoint to a
+     temporary directory: params/... float16, nothing else but float32;
+     (c) the gate: cli.bench at the full protocol (10k points, 2 + 8
+     batches of 4) for the candidate on stream a and on stream b and the
+     shipped weights on stream b (ms a shape, quality), the shipped
+     stream-a record phase 7's full run; cli.promote_candidate over them
+     with --dest, --params-dir and --bank under a temporary directory
+     (run_gate): cli.bench loaded the export, the gate decides (exit 0 or
+     1; its checks printed) and every file of params/ keeps its sha256;
+     (d) cli.validate_reference's two stages and parity table on stream-a
+     shapes 8-15 in memory (f32 mean-shift, the 12 slots): every column
+     finite, the labels equal predict_segmentation's bit for bit with one
+     generator of the same seed; with h5py also its main through h5 files.
+     Prints the phase's seconds and its launches of K1 f32, K1 bf16, K2, K3
+     and K4, each of which must be above 0;
 The last three lines are the kernels JSON, the nvidia-smi line and
-{"ok": true, "device": {...}}. Any failed check exits non-zero without the
+{"ok": true, "device": {...}}. A kernel's "launches" there sum its
+launches on the paths the phases drive (stream a, 4b-4d, the trainers, the
+benches of 7) and those of phases 9 and 10, which each entry also gives
+apart ("launches_phase9", "launches_phase10"). Any failed check exits non-zero without the
 ok line; without a CUDA device it exits 1 at once.
 """
 import contextlib
@@ -1106,6 +1135,267 @@ def dp_phase(dev, report, model, spline_fit, shapes, embn, e2e_step_inputs,
           f"dryrun_multichip {cards} ran ({out['dryrun']['s']:.1f} s)")
     out["launches"] = total
     print(f"[9 dp] launches of the phase's drive {total}", flush=True)
+    return out
+
+
+# Phase 10: the route from a fine-tune to shipped weights. Sizes are
+# arguments so that the phase can be rehearsed on the CPU at a small size.
+FT_SIZES = {"shape_points": 10000, "steps": 2, "val_shapes": 4,
+            "val_points": 10000, "config": {}, "bench_env": {},
+            "proto": slice(8, 16)}
+
+
+def params_digest(root=os.path.join(REPO, "params")):
+    """{file: sha256} of every file under params/."""
+    import hashlib
+    out = {}
+    for name in sorted(os.listdir(root)):
+        with open(os.path.join(root, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def run_gate(records, cand, work):
+    """cli.promote_candidate on the bench records {cand_a, cand_b,
+    shipped_b, shipped_a}, written as JSON under work, with --dest and
+    --params-dir in work (never params/) and --bank work/gate_bank ->
+    (exit code, the gate's output)."""
+    import io
+    from parsenet_tpu_torch.cli import promote_candidate
+    gate = os.path.join(work, "gate")
+    os.makedirs(os.path.join(gate, "params"), exist_ok=True)
+    paths = {}
+    for tag, rec in records.items():
+        paths[tag] = os.path.join(gate, f"{tag}.json")
+        with open(paths[tag], "w") as f:
+            json.dump(rec, f)
+    args = ["--cand", cand, "--gate-a", paths["cand_a"],
+            "--gate-b", paths["cand_b"], "--shipped-b", paths["shipped_b"],
+            "--shipped-a-json", paths["shipped_a"],
+            "--dest", os.path.join(gate, "params", "parsenet_e2e.npz"),
+            "--params-dir", os.path.join(gate, "params"),
+            "--bank", os.path.join(gate, "bank")]
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        try:
+            promote_candidate.main(args)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return code, buf.getvalue()
+
+
+def finetune_phase(dev, report, model, spline_fit, shapes, bench_a=None,
+                   sizes=FT_SIZES):
+    """Phase 10 (see the module docstring). shapes: stream a's
+    canonicalised (pts, normals, labels, prim); bench_a: a cli.bench
+    record of the shipped weights on stream a at the full protocol (phase
+    7's), run here where None."""
+    import shutil
+    import numpy as np
+    import torch
+    from parsenet_tpu_torch.cli import bench as cbench
+    from parsenet_tpu_torch.cli import export_params as cexport
+    from parsenet_tpu_torch.cli import finetune_e2e as cft
+    from parsenet_tpu_torch.cli import validate_reference as cval
+    from parsenet_tpu_torch.core.checkpoint import load_npz_params
+    from parsenet_tpu_torch.core.profiling import StageTimer
+    from parsenet_tpu_torch.data.synthetic import make_shape_batch
+    from parsenet_tpu_torch.eval import pipeline as tp
+    from parsenet_tpu_torch.models.dgcnn import params_to_jax
+    from parsenet_tpu_torch.ops import kernels
+    from parsenet_tpu_torch.train import train_e2e as te2e
+    from parsenet_tpu_torch.train.state import (make_optimizer, mean_metrics,
+                                                pack_batch,
+                                                validation_batches,
+                                                validation_sample)
+
+    out = report["finetune"] = {}
+    t_phase = time.perf_counter()
+    work = os.path.join(OUT_DIR, "finetune")
+    shutil.rmtree(work, ignore_errors=True)
+    before = params_digest()
+    kernels.reset_launches()
+
+    # (a) cli.finetune_e2e's loop from the shipped weights and decoders
+    conf = cft.finetune_config(epochs=1, log_dir=os.path.join(work, "logs"),
+                               **sizes["config"])
+    per_step = conf.batch_size * conf.accum
+    n_pts, n_val = sizes["shape_points"], sizes["val_shapes"]
+    tr = make_shape_batch(np.random.RandomState(40),
+                          sizes["steps"] * per_step, n_pts)
+    va = make_shape_batch(np.random.RandomState(41), n_val, n_pts)
+
+    def val_gen():
+        b = conf.batch_size
+        return (tuple(a[i:i + b] for a in va) for i in range(0, n_val, b))
+
+    def run(i):
+        timer = StageTimer(dev.type == "cuda")
+        tr_gen = (tuple(a[j:j + per_step] for a in tr)
+                  for j in range(0, len(tr[0]), per_step))
+        t0 = time.perf_counter()
+        res = cft.finetune(conf, val_shapes=n_val,
+                           val_points=sizes["val_points"], train_gen=tr_gen,
+                           val_gen=val_gen(), steps_per_epoch=sizes["steps"],
+                           points_per_shape=conf.num_points,
+                           spline_fit=spline_fit, device=dev, timer=timer)
+        s = time.perf_counter() - t0
+        step_ms = []
+        if timer.enabled:
+            timer.ms()
+            fwd, opt = timer.events["dgcnn_forward"], timer.events["optimizer"]
+            step_ms = [fwd[j * conf.accum][0].elapsed_time(opt[j][1])
+                       for j in range(len(opt))]
+        ep = res.epochs[0]
+        print(f"[10 finetune] run {i}: {sizes['steps']} steps of {per_step} "
+              f"shapes x {conf.num_points} points (k {conf.knn_k}, accum "
+              f"{conf.accum}, lr {conf.lr:g}), ms a step "
+              f"{[round(v, 1) for v in step_ms] or 'not measured'}; "
+              f"validation on {n_val} fixed shapes x {sizes['val_points']} "
+              f"points: val_seg_iou {ep['val_seg_iou']!r} val_res_loss "
+              f"{ep['val_res_loss']!r}; {s:.1f} s", flush=True)
+        check(all(np.isfinite(v) for st in res.steps for v in st.values())
+              and all(st["grad_ok"] == 1.0 for st in res.steps)
+              and np.isfinite(ep["val_seg_iou"]),
+              f"fine-tune run {i}: finite, grad_ok 1 at every step")
+        return res, step_ms, s
+
+    res, step_ms, _ = run(1)
+    res2, _, _ = run(2)
+    out["step_ms"], out["epochs"] = step_ms, res.epochs
+    check(res.steps == res2.steps and res.epochs == res2.epochs,
+          "fine-tune twice from one seed: every step's metrics and the "
+          "validation equal")
+    ckpt = os.path.join(conf.log_dir, "checkpoints", f"{conf.model_path}.npz")
+    flat, mine = load_npz_params(ckpt), params_to_jax(res2.model)
+    check(sorted(flat) == sorted(mine)
+          and all(np.array_equal(flat[k], mine[k]) for k in flat),
+          f"the checkpoint {conf.model_path}.npz loads back bit for bit")
+    # the fixed validation sample rebuilt, scored by a standalone eval_step
+    # of the trained network
+    eval_step = te2e.make_e2e_step(res2.model, spline_fit, make_optimizer(
+        res2.model.parameters(), "adam", conf.lr))[1]
+    sample = validation_sample(
+        val_gen(), validation_batches(n_val, conf.batch_size), conf.seed,
+        lambda *b: pack_batch(*b, sizes["val_points"], True, dev),
+        lambda x, g: (te2e.draw_e2e(x.shape[0], x.shape[1],
+                                    te2e.MS_NUM_SAMPLES, g, dev),), dev)
+    alone = mean_metrics([eval_step(*vb) for vb in sample])[1]
+    ep = res2.epochs[0]
+    print(f"[10 finetune] standalone eval_step on the {n_val} x "
+          f"{sample[0][0].shape[1]} sample: seg_iou {alone['seg_iou']!r} "
+          f"res_loss {alone['res_loss']!r}", flush=True)
+    check(sample[0][0].shape[1] == sizes["val_points"]
+          and alone["seg_iou"] == ep["val_seg_iou"]
+          and alone["res_loss"] == ep["val_res_loss"],
+          f"val_seg_iou / val_res_loss at {sizes['val_points']} points equal "
+          "the standalone eval_step's bit for bit")
+
+    # (b) cli.export_params of that checkpoint
+    cand = os.path.join(work, "cand_e2e.npz")
+    check(cexport.export(ckpt, cand), "export_params wrote the candidate")
+    with np.load(cand) as z:
+        kinds = {str(z[k].dtype) for k in z.files if k.startswith("params")}
+        rest = {str(z[k].dtype) for k in z.files
+                if not k.startswith("params")}
+    check(kinds == {"float16"} and rest <= {"float32"},
+          f"export dtypes: params {sorted(kinds)}, others {sorted(rest)}")
+
+    # (c) the gate over three cli.bench runs at the full protocol
+    recs = {}
+    with contextlib.chdir(REPO):
+        for tag, env in (("cand_a", {"BENCH_PARAMS": cand}),
+                         ("cand_b", {"BENCH_PARAMS": cand,
+                                     "BENCH_STREAM": "b"}),
+                         ("shipped_b", {"BENCH_STREAM": "b"}),
+                         ("shipped_a", {})):
+            if tag == "shipped_a" and bench_a is not None:
+                recs[tag] = bench_a
+                continue
+            recs[tag] = cbench.run(cbench.settings(
+                {**env, **sizes["bench_env"]}), dev)
+            d = recs[tag]["detail"]
+            print(f"[10 gate] {tag}: {d['per_shape_ms']:.2f} ms a shape, "
+                  f"seg_iou {d['seg_iou']:.5f} sk_2 {d['sk_2']:.5f} residual "
+                  f"{d['residual']:.5f}, floors applied "
+                  f"{d['floors_applied']}, quality_ok {d['quality_ok']}, "
+                  f"params {d['params_src']}", flush=True)
+            check(all(np.isfinite(d[k]) for k in ("seg_iou", "sk_2",
+                                                   "residual")),
+                  f"gate run {tag}: finite metrics")
+    out["gate_runs"] = {k: v["detail"] for k, v in recs.items()}
+    check(recs["cand_a"]["detail"]["params_src"] == cand
+          and recs["cand_a"]["detail"]["trained_params"],
+          "cli.bench loaded the export")
+    code, text = run_gate(recs, cand, work)
+    for line in text.splitlines():
+        print(f"  {line}", flush=True)
+    out["gate_exit"] = code
+    print(f"[10 gate] verdict: exit {code} ("
+          f"{ {0: 'promoted into the temporary params', 1: 'gate failed'}.get(code, 'inputs missing')})",
+          flush=True)
+    check(code in (0, 1), "the gate decided (exit 0 or 1)")
+    check(params_digest() == before, "params/ untouched by the phase")
+
+    # (d) validate_reference's table on stream-a shapes, in memory
+    sl = sizes["proto"]
+    pts, nrm, lab, prim = (a[sl] for a in shapes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    agg = cval.validate_split(model, pts, nrm, lab, prim, spline_fit,
+                              generator=gen, device=dev)
+    v_s = time.perf_counter() - t0
+    with open(cval.EXPECTED) as f:
+        summary = cval.parity_table(agg, json.load(f))
+    out["validate"] = summary
+    check(all(np.isfinite(r["measured"]) for r in summary["rows"])
+          and summary["n_shapes"] == len(pts),
+          f"validate_reference table on {len(pts)} stream-a shapes finite "
+          f"({1000.0 * v_s / len(pts):.1f} ms a shape)")
+    gen.manual_seed(0)
+    same = True
+    for b in range(0, len(pts), 4):
+        p = tp.predict_segmentation(model, pts[b:b + 4], nrm[b:b + 4],
+                                    lab[b:b + 4], prim[b:b + 4],
+                                    generator=gen, device=dev)
+        same &= np.array_equal(p.labels.cpu().numpy(),
+                               agg["seg_id"][b:b + 4])
+    check(same, "validate_reference's labels equal predict_segmentation's "
+          "bit for bit")
+    import importlib.util
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+        data = os.path.join(work, "shapes")
+        os.makedirs(data)
+        for split in ("val", "test"):
+            with h5py.File(os.path.join(data, f"{split}_data.h5"), "w") as f:
+                for k, a in zip(("points", "normals", "labels", "prim"),
+                                (pts, nrm, lab, prim)):
+                    f.create_dataset(k, data=a)
+        cfg_path = os.path.join(work, "validate.yml")
+        with open(cfg_path, "w") as f:
+            f.write(f'[train]\nmodel_path = "parsenet_e2e"\ndataset = '
+                    f'"{data}/"\nlog_dir = "{work}/vlogs"\nnormals = True\n'
+                    f"num_val = {len(pts)}\nnum_test = {len(pts)}\nmode = 5\n"
+                    "knn_k = 80\n")
+        s5 = cval.main([cfg_path, "--params", PARAMS, "--device", str(dev)])
+        check(all(np.isfinite(r["measured"]) for r in s5["rows"]),
+              "validate_reference through h5 files: finite")
+    else:
+        print("[10 validate] h5py absent: the table in memory only",
+              flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[10] {out['seconds']:.1f} s, launches K1 f32 "
+          f"{out['launches']['K1']}, K1 bf16 {out['launches']['K1tc']}, K2 "
+          f"{out['launches']['K2']}, K3 {out['launches']['K3']}, K4 "
+          f"{out['launches']['K4']}", flush=True)
+    for kname in ("K1", "K1tc", "K2", "K3", "K4"):
+        check(out["launches"][kname] > 0,
+              f"phase 10 launched {kname} ({out['launches'][kname]})")
     return out
 
 
@@ -2792,6 +3082,14 @@ def main():
 
     phase(dp_run)
 
+    # ---- 10. (run before 6) the route from a fine-tune to shipped weights
+    def ft_run():
+        shipped_a = report.get("bench", {}).get("full", {}).get("record")
+        return finetune_phase(dev, report, model, spline_fit,
+                              (pts, normals, labels, prim), shipped_a)
+
+    phase(ft_run)
+
     # ---- 6. kernel times at main-path shapes
     entries = []
 
@@ -3270,12 +3568,15 @@ def main():
             "bound_by": "operations", "library_ms": k5_lib, "id": "K5"})
 
     phase(kernel_times)
-    # phase 9's launches, counted from zero around each of its drives
+    # phase 9's and phase 10's launches, counted from zero around each of
+    # their drives
     p9 = report.get("dp", {}).get("launches", {})
+    p10 = report.get("finetune", {}).get("launches", {})
     for entry in entries:
         key = str(entry.get("id", "")).replace(" ", "_")
         entry["launches_phase9"] = p9.get(key, 0)
-        entry["launches"] += p9.get(key, 0)
+        entry["launches_phase10"] = p10.get(key, 0)
+        entry["launches"] += p9.get(key, 0) + p10.get(key, 0)
     report["kernels"] = entries
     report["failures"] = FAILURES
     report["seconds"] = time.perf_counter() - t_start

@@ -30,7 +30,7 @@ from ..core.config import load_config
 from ..core.guards import entry_device
 from ..core.logging import setup_logging
 from ..core.profiling import StepTimer, trace
-from ..eval.pipeline import (COV_SAMPLES, EVAL_SPLINE_SLOTS,
+from ..eval.pipeline import (COV_SAMPLES, EVAL_SPLINE_SLOTS, SPLINE_PTS,
                              protocol_coverage, reconstruct_shape)
 from ..fitting.spline_apply import trained_spline_fit
 from ..ops.preprocess import BUF
@@ -45,12 +45,17 @@ METRICS = ("residual", "p_cov", "sk_1", "sk_2")
 RENDER_SHAPES = 8
 
 
-def draw(n: int, generator: torch.Generator):
+def draw(n: int, generator: torch.Generator, eval_preprocess: bool = True):
     """One shape's draws, in reconstruct_shape's order: the coverage
     uniforms [COV_SAMPLES], then the slots' packing [12, N] and final
-    draws [12, min(N, BUF)]."""
+    draws [12, min(N, BUF)] (eval_preprocess=False: the slots'
+    with-replacement draws [12, SPLINE_PTS])."""
     dev = generator.device
-    return (torch.rand(COV_SAMPLES, generator=generator, device=dev),
+    uniforms = torch.rand(COV_SAMPLES, generator=generator, device=dev)
+    if not eval_preprocess:
+        return uniforms, torch.rand((EVAL_SPLINE_SLOTS, SPLINE_PTS),
+                                    generator=generator, device=dev)
+    return (uniforms,
             (torch.rand((EVAL_SPLINE_SLOTS, n), generator=generator,
                         device=dev),
              torch.rand((EVAL_SPLINE_SLOTS, min(n, BUF)),
@@ -123,12 +128,15 @@ def trimmed_segment_meshes(surf: np.ndarray, mask: np.ndarray,
 def evaluate_split(points, normals, seg_ids, pred_prims, spline_fit,
                    generator: Optional[torch.Generator] = None, draws=None,
                    if_optimize: bool = False, render_shapes: int = 0,
-                   device=None, timer: Optional[StepTimer] = None) -> dict:
+                   eval_preprocess: bool = True, device=None,
+                   timer: Optional[StepTimer] = None) -> dict:
     """Fit and measure S shapes: points / normals [S, N, 3], seg_ids /
     pred_prims [S, N] (predictions.h5), spline_fit (None: the spline-free
     arm). Each shape's draws are draws[i] = (uniforms, slot_uniforms), else
     made by `draw` from `generator`; with if_optimize the refined surfaces'
-    coverage takes the same uniforms, as test.py's does. Returns per-shape
+    coverage takes the same uniforms, as test.py's does. eval_preprocess
+    False samples the spline segments without the outlier removal and
+    upsampling (reconstruct_shape's). Returns per-shape
     lists of METRICS (the refined coverage where if_optimize) and, for the
     first render_shapes shapes, their trimmed meshes ("meshes")."""
     dev = entry_device(device)
@@ -136,14 +144,17 @@ def evaluate_split(points, normals, seg_ids, pred_prims, spline_fit,
     out["meshes"] = []
     for i in range(len(points)):
         uniforms, slot_uniforms = (draws[i] if draws is not None
-                                   else draw(points[i].shape[0], generator))
+                                   else draw(points[i].shape[0], generator,
+                                             eval_preprocess))
         if timer is not None:
             timer.start()
         with trace("reconstruct_shape"):
             rec = reconstruct_shape(points[i], normals[i], seg_ids[i],
                                     pred_prims[i], uniforms=uniforms,
                                     spline_fit=spline_fit,
-                                    slot_uniforms=slot_uniforms, device=dev)
+                                    slot_uniforms=slot_uniforms,
+                                    eval_preprocess=eval_preprocess,
+                                    device=dev)
         m = {k: float(getattr(rec, k)) for k in METRICS}
         surf = rec.surface_points.cpu().numpy()
         mask = rec.surface_mask.cpu().numpy().astype(bool)

@@ -45,3 +45,25 @@ def guard_exp(x: torch.Tensor, max_value: float = 75.0,
 def guard_sqrt(x: torch.Tensor, minimum: float = 1e-5) -> torch.Tensor:
     """sqrt with its input clamped away from 0 (finite gradient)."""
     return torch.sqrt(torch.clamp(x, min=minimum))
+
+
+def safe_acos(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """acos with its argument pulled off +-1, where its derivative blows
+    up (reference: src/primitive_forward.py:836-839)."""
+    return torch.arccos(torch.clamp(x, -1.0 + eps, 1.0 - eps))
+
+
+def safe_normalize(x: torch.Tensor, dim: int = -1,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """x over its L2 norm along `dim`, guarding the zero vector."""
+    return x / (torch.linalg.norm(x, dim=dim, keepdim=True) + eps)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None,
+                eps: float = 1e-8) -> torch.Tensor:
+    """Mean of `x` over the entries where `mask` is nonzero (over all of
+    them where dim is None)."""
+    mask = mask.to(x.dtype)
+    if dim is None:
+        return torch.sum(x * mask) / (torch.sum(mask) + eps)
+    return torch.sum(x * mask, dim=dim) / (torch.sum(mask, dim=dim) + eps)

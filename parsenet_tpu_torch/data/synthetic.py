@@ -6,11 +6,13 @@ use), draw for draw, so a RandomState seed gives bitwise-equal arrays in
 both packages. Multi-segment point clouds from random planes / spheres /
 cylinders / cones / spline-like height fields, with per-point segment
 labels, normals and primitive types; and SplineNet training patches with
-their control grids.
+their control grids. write_abc_h5 / write_spline_h5 write them in the
+reference's h5 schema, the layout data.abc and data.splines read.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 
@@ -157,3 +159,34 @@ def make_spline_batch(rng, batch: int, num_points: int = 700, grid: int = 20,
         pts.append(p)
         cps.append(c)
     return np.stack(pts), np.stack(cps)
+
+
+def write_abc_h5(path: str, num_shapes: int, num_points: int = 10000,
+                 seed: int = 0) -> None:
+    """Write make_shape_batch(RandomState(seed), ...) as an h5 in the
+    reference schema, points / labels / normals / prim (reference:
+    src/dataset_segments.py:38-48), the layout data.abc reads."""
+    import h5py
+    rng = np.random.RandomState(seed)
+    P, L, NN, PR = make_shape_batch(rng, num_shapes, num_points)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as hf:
+        hf.create_dataset("points", data=P)
+        hf.create_dataset("labels", data=L)
+        hf.create_dataset("normals", data=NN)
+        hf.create_dataset("prim", data=PR)
+
+
+def write_spline_h5(path: str, num_patches: int, num_points: int = 700,
+                    grid: int = 20, closed: bool = False,
+                    seed: int = 0) -> None:
+    """Write make_spline_batch(RandomState(seed), ...) as an h5 in the
+    reference schema, points / controlpoints (reference:
+    src/dataset.py:50-52), the layout data.splines reads."""
+    import h5py
+    rng = np.random.RandomState(seed)
+    P, C = make_spline_batch(rng, num_patches, num_points, grid, closed)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as hf:
+        hf.create_dataset("points", data=P)
+        hf.create_dataset("controlpoints", data=C)

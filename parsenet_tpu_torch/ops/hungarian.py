@@ -16,6 +16,9 @@ Benefit preparation (see the JAX module's notes):
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from .kernels import (complete_assignment, lap_assign,  # noqa: F401
@@ -33,3 +36,12 @@ def solve_lap(cost: torch.Tensor, max_iter: int = 3000) -> torch.Tensor:
     launch for all B matrices; on the CPU it is kernels.lap_assign_plain."""
     return lap_assign(cost.to(torch.float32), _EPS0, _ESC_EVERY, _ESC,
                       max_iter)
+
+
+def solve_lap_host(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The exact minimum-cost assignment on the host by scipy's
+    linear_sum_assignment (drop-in for lapsolver.solve_dense): (row ids,
+    column ids) int32."""
+    from scipy.optimize import linear_sum_assignment
+    rids, cids = linear_sum_assignment(np.asarray(cost))
+    return rids.astype(np.int32), cids.astype(np.int32)

@@ -39,6 +39,14 @@ def _row_chunks(n: int, target: int = CHUNK_TARGET) -> int:
     return c
 
 
+def pairwise_sqdist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distance between row sets: [M, C] x [N, C] ->
+    [M, N], as |q|^2 - 2 <q, x> + |x|^2."""
+    qq = torch.sum(q * q, dim=-1, keepdim=True)
+    xx = torch.sum(x * x, dim=-1, keepdim=True)
+    return qq - 2.0 * (q @ x.T) + xx.T
+
+
 def topk_first(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries of each row of f32 x, in descending
     order, equal values in ascending index order: lax.top_k's order, which
@@ -109,3 +117,11 @@ def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather neighbour features. x: [B, N, C], idx: [B, N, k] -> [B, N, k, C]."""
     b = torch.arange(x.shape[0], device=x.device)[:, None, None]
     return x[b, idx]
+
+
+def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """EdgeConv features concat(x_j - x_i, x_i): x [B, N, C], idx [B, N, k]
+    -> [B, N, k, 2C] (reference: src/PointNet.py:72-103)."""
+    nbrs = gather_neighbors(x, idx)
+    center = x[:, :, None, :].expand_as(nbrs)
+    return torch.cat([nbrs - center, center], dim=-1)

@@ -91,6 +91,19 @@ def _initial_bandwidth(d: torch.Tensor, quantile: float,
     return torch.clamp(bw, min=min_bw)
 
 
+def bandwidth_from_sorted(sorted_d: torch.Tensor, quantile,
+                          min_bw: float = 0.003) -> torch.Tensor:
+    """Mean over rows of the sqrt of the quantile-th nearest distance, from
+    rows sorted ascending [S, S] (reference: src/mean_shift.py:115-137):
+    column k - 1, k = clip(quantile * S, 1, S - 1) in f32, the row's own
+    zero distance in column 0 as torch.topk(largest=False) leaves it."""
+    s = sorted_d.shape[0]
+    k = int(np.clip(int(np.float32(float(quantile)) * np.float32(s)), 1,
+                    s - 1))
+    bw = torch.mean(guard_sqrt(sorted_d[:, k - 1], 1e-6))
+    return torch.clamp(bw, min=min_bw)
+
+
 def nms(shifted: torch.Tensor, X: torch.Tensor, bandwidth: torch.Tensor):
     """Fixed-shape non-max suppression (reference src/mean_shift.py:139-179).
     Returns (center_mask [N], labels [N] int64 compacted, num_clusters)."""

@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..core.guards import guard_sqrt
 from .primitive_fits import AllPrimParams
 
 LABEL_PLANE = 1
@@ -53,6 +54,22 @@ def sqdist_cone(points, apex, axis, theta):
                              max=math.pi / 2.0)
     d = mod_v * torch.sin(dist_angle)
     return d * d
+
+
+def sqdist_torus(points, axis, center, major_radius, minor_radius):
+    """(reference: src/primitives.py:58-87) points [N, 3], axis and centre
+    [..., 3], radii [...] (or floats) -> [..., N]: the smaller of the
+    distances to the tube circles on both sides of the axis."""
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    v = points - center[..., None, :]
+    z = torch.sum(v * axis[..., None, :], dim=-1)
+    x = guard_sqrt(torch.sum(v * v, dim=-1) - z * z)
+    big, small = (torch.as_tensor(r, dtype=points.dtype,
+                                  device=points.device)[..., None]
+                  for r in (major_radius, minor_radius))
+    right = (guard_sqrt((x - big) ** 2 + z * z) - small) ** 2
+    left = (guard_sqrt((x + big) ** 2 + z * z) - small) ** 2
+    return torch.minimum(right, left)
 
 
 def geom_type_from_label(label: torch.Tensor) -> torch.Tensor:

@@ -117,14 +117,32 @@ def fit_cone(points: torch.Tensor, normals: torch.Tensor,
     return ConeParams(apex, a, theta)
 
 
-def fit_all_primitives_shared_points(points: torch.Tensor,
-                                     normals: torch.Tensor,
-                                     weights: torch.Tensor) -> AllPrimParams:
-    """All four fits for K segments of one cloud: points/normals [N, 3],
-    weights [K, N] -> parameters stacked over K."""
+def fit_all_primitives(points: torch.Tensor, normals: torch.Tensor,
+                       weights: torch.Tensor) -> AllPrimParams:
+    """All four fits of one weighted segment: points/normals [N, 3],
+    weights [N] (or segments stacked on leading axes: [..., N, 3] and
+    [..., N]). Fitting every type lets the per-segment type dispatch of
+    the reference (src/primitive_forward.py:925-1047) be a select."""
     return AllPrimParams(
         plane=fit_plane(points, weights),
         sphere=fit_sphere(points, weights),
         cylinder=fit_cylinder(points, normals, weights),
         cone=fit_cone(points, normals, weights),
     )
+
+
+# the JAX package's vmaps over a leading segment axis (points [K, N, 3],
+# weights [K, N]): every fit here takes leading axes as they come
+fit_plane_batched = fit_plane
+fit_sphere_batched = fit_sphere
+fit_cylinder_batched = fit_cylinder
+fit_cone_batched = fit_cone
+fit_all_primitives_batched = fit_all_primitives
+
+
+def fit_all_primitives_shared_points(points: torch.Tensor,
+                                     normals: torch.Tensor,
+                                     weights: torch.Tensor) -> AllPrimParams:
+    """All four fits for K segments of one cloud: points/normals [N, 3],
+    weights [K, N] -> parameters stacked over K."""
+    return fit_all_primitives(points, normals, weights)

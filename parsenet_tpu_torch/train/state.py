@@ -158,22 +158,27 @@ def pack_batch(points, labels, normals, prim, rng: np.random.RandomState,
             to_tensor(prim, dev, torch.int64))
 
 
-def validation_sample(val_gen: Iterator, n_shapes: int, batch_size: int,
-                      seed: int, pack: Callable, draw: Callable,
-                      dev) -> list:
-    """The FIXED validation sample: ceil(n_shapes / batch_size) batches
-    of val_gen, each packed by pack(*batch, rng) with one
-    RandomState(seed + 17), plus its draws draw(x, generator) from a
-    generator seeded seed + 1000 + i: the same shapes, points and draws
-    every epoch. Returns [(x, labels, prim, *draws)]."""
+def validation_sample(val_gen: Iterator, n_batches: int, seed: int,
+                      pack: Callable, draw: Callable, dev) -> list:
+    """The FIXED validation sample: n_batches batches of val_gen, each
+    packed by pack(*batch, rng) with one RandomState(seed + 17), plus its
+    draws draw(x, generator) from a generator seeded seed + 1000 + i: the
+    same shapes, points and draws every epoch. Returns [(x, labels, prim,
+    *draws)]."""
     rng = np.random.RandomState(seed + 17)
     out = []
-    for i in range(max(1, -(-n_shapes // batch_size))):
+    for i in range(n_batches):
         x, labels, prim = pack(*next(val_gen), rng)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + 1000 + i)
         out.append((x, labels, prim, *draw(x, gen)))
     return out
+
+
+def validation_batches(n_shapes, batch_size: int) -> int:
+    """The batches of a fixed validation sample of n_shapes shapes:
+    ceil(n_shapes / batch_size), at least one."""
+    return max(1, -(-n_shapes // batch_size))
 
 
 def mean_metrics(metrics: list) -> tuple:

@@ -47,7 +47,8 @@ from ..data.prefetch import lookahead
 from ..parallel.mesh import replicate, shard_batch
 from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
                     mean_metrics, network_kwargs, pack_batch, rank_logger,
-                    rank_mean, trainer_mesh, validation_sample)
+                    rank_mean, trainer_mesh, validation_batches,
+                    validation_sample)
 
 log = logging.getLogger(__name__)
 
@@ -179,10 +180,11 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
 
 def run_training(config: Config, train_gen: Optional[Iterator] = None,
                  val_gen: Optional[Iterator] = None,
-                 steps_per_epoch: Optional[int] = None,
+                 steps_per_epoch: Optional[int] = None, val_steps: int = 2,
                  points_per_shape: int = 8000,
                  pretrained: Optional[dict] = None, spline_fit=None,
                  lamb: float = 0.1, val_shapes: Optional[int] = 16,
+                 val_points: Optional[int] = None,
                  checkpoint: bool = True, device=None,
                  timer: StageTimer = NO_TIMER, mesh=None) -> TrainResult:
     """The fine-tuning loop. Generators yield numpy (points [B, N, 3],
@@ -193,13 +195,18 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     the seeded initialisation). spline_fit: the frozen decoders (else
     build_spline_fit, see the module docstring). val_shapes: the FIXED
     validation sample (the same shapes, points and draws every epoch)
-    whose seg IoU picks the weights to save; with `checkpoint`, each
-    epoch that improves it writes {log_dir}/checkpoints/{model_path}.npz
-    (every epoch without a validation sample), and every SAVE_EVERY
-    optimizer steps {model_path}_step{step}.npz is written beside it
-    (train_e2e.py:353 of the JAX package). device None = "cuda"; `timer`
-    splits each step into STAGES. Returns a TrainResult whose epochs hold
-    the means, val_res_loss and val_seg_iou.
+    whose seg IoU picks the weights to save, its points drawn at
+    val_points (None: points_per_shape; pass 10000 to select at the scale
+    the shipping gate measures, as cli.finetune_e2e does). val_shapes
+    None: each epoch scores `val_steps` streaming batches of val_gen
+    instead, subsampled and drawn from the training streams, and the
+    weights are saved every epoch. With `checkpoint`, each epoch that
+    improves the fixed sample's seg IoU writes {log_dir}/checkpoints/
+    {model_path}.npz, and every SAVE_EVERY optimizer steps
+    {model_path}_step{step}.npz is written beside it (train_e2e.py:353 of
+    the JAX package). device None = "cuda"; `timer` splits each step into
+    STAGES. Returns a TrainResult whose epochs hold the means and, with
+    val_gen, val_res_loss and val_seg_iou.
 
     Data parallel over config.num_devices ranks as train_seg.run_training
     (a caller's `mesh` instead): each rank keeps its slice of the global
@@ -207,17 +214,17 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     global sample's on every rank; rank 0 alone logs and writes files."""
     mesh, dev, own_mesh = trainer_mesh(config, mesh, device)
     try:
-        return _train(config, train_gen, val_gen, steps_per_epoch,
+        return _train(config, train_gen, val_gen, steps_per_epoch, val_steps,
                       points_per_shape, pretrained, spline_fit, lamb,
-                      val_shapes, checkpoint, dev, timer, mesh)
+                      val_shapes, val_points, checkpoint, dev, timer, mesh)
     finally:
         if own_mesh:
             mesh.close()
 
 
-def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
-           pretrained, spline_fit, lamb, val_shapes, checkpoint, dev, timer,
-           mesh) -> TrainResult:
+def _train(config, train_gen, val_gen, steps_per_epoch, val_steps,
+           points_per_shape, pretrained, spline_fit, lamb, val_shapes,
+           val_points, checkpoint, dev, timer, mesh) -> TrainResult:
     from ..data.abc import ABCDataset
 
     num_accum = max(config.accum, 1)
@@ -266,16 +273,28 @@ def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
     mlog = rank_logger(mesh, config.log_dir, config.model_path)
     ckpt_path = os.path.join(ckpt_dir, f"{config.model_path}.npz")
 
-    def pack(points, labels, normals, prim, rng):
-        return pack_batch(points, labels, normals, prim, rng,
-                          points_per_shape, with_normals, dev)
+    def pack(points, labels, normals, prim, rng, n_keep=points_per_shape):
+        return pack_batch(points, labels, normals, prim, rng, n_keep,
+                          with_normals, dev)
+
+    def draws_of(x, g):
+        return draw_e2e(x.shape[0], x.shape[1], MS_NUM_SAMPLES, g, dev)
 
     val_batches = []
     if val_gen is not None and val_shapes:
+        n_val = val_points or points_per_shape
         val_batches = [shard_batch(mesh, vb) for vb in validation_sample(
-            val_gen, val_shapes, config.batch_size, config.seed, pack,
-            lambda x, g: (draw_e2e(x.shape[0], x.shape[1], MS_NUM_SAMPLES,
-                                   g, dev),), dev)]
+            val_gen, validation_batches(val_shapes, config.batch_size),
+            config.seed, lambda *b: pack(*b, n_keep=n_val),
+            lambda x, g: (draws_of(x, g),), dev)]
+
+    def streaming_val():
+        # val_shapes None: val_steps fresh batches, subsampled by host_rng
+        # and drawn from `gen`, as the training steps are
+        for _ in range(val_steps):
+            vb = pack(*next(val_gen), host_rng)
+            yield shard_batch(mesh, (*vb, draws_of(vb[0], gen)))
+
     best_val_siou = -float("inf")
     step = 0
 
@@ -300,8 +319,9 @@ def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
                     params_to_jax(model))
         step_floats, tr = mean_metrics(agg)
         steps += step_floats
-        if val_batches:
-            val = mean_metrics([eval_step(*vb) for vb in val_batches])[1]
+        if val_gen is not None:
+            val = mean_metrics([eval_step(*vb) for vb in (
+                val_batches or streaming_val())])[1]
             tr["val_res_loss"] = val["res_loss"]
             tr["val_seg_iou"] = val["seg_iou"]
         if mesh.is_main:
@@ -311,7 +331,8 @@ def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
                      tr["embed_loss"], tr["seg_iou"], tr["prim_iou"],
                      tr["clusters"],
                      (f" | val res {tr['val_res_loss']:.4f} siou "
-                      f"{tr['val_seg_iou']:.3f}" if val_batches else ""),
+                      f"{tr['val_seg_iou']:.3f}" if val_gen is not None
+                      else ""),
                      time.time() - t0)
         epochs.append(tr)
         mlog.log(epoch, tr)

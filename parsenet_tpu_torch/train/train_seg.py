@@ -41,7 +41,8 @@ from ..data.prefetch import lookahead
 from ..parallel.mesh import replicate, shard_batch
 from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
                     mean_metrics, network_kwargs, pack_batch, rank_logger,
-                    rank_mean, trainer_mesh, validation_sample)
+                    rank_mean, trainer_mesh, validation_batches,
+                    validation_sample)
 
 log = logging.getLogger(__name__)
 
@@ -91,8 +92,9 @@ def make_step_fns(model: PrimitivesEmbedding,
 
 def run_training(config: Config, train_gen: Optional[Iterator] = None,
                  val_gen: Optional[Iterator] = None,
-                 steps_per_epoch: Optional[int] = None,
-                 points_per_shape: int = 7000, val_shapes: int = 32,
+                 steps_per_epoch: Optional[int] = None, val_steps: int = 4,
+                 points_per_shape: int = 7000,
+                 val_shapes: Optional[int] = 32,
                  checkpoint: bool = True, device=None,
                  timer: StageTimer = NO_TIMER, mesh=None) -> TrainResult:
     """The training loop. Generators yield numpy (points [B, N, 3], labels
@@ -100,7 +102,9 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     shapes. Without them the config's h5 splits are read (data.abc
     .ABCDataset). val_shapes: the size of the FIXED validation sample (the
     same shapes, point subsample and triplet draws every epoch) that
-    scores epochs for the plateau lr and the best-weights save. With
+    scores epochs for the plateau lr and the best-weights save; None takes
+    `val_steps` batches of val_gen as that sample instead
+    (parsenet_tpu/train/train_seg.py:171-172). With
     `checkpoint`, every epoch whose validation embedding loss is the best
     so far writes {log_dir}/checkpoints/{model_path}.npz and the optimizer
     state beside it; preload_model resumes from them. device None =
@@ -115,7 +119,7 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
     generator runs behind data.prefetch.lookahead."""
     mesh, dev, own_mesh = trainer_mesh(config, mesh, device)
     try:
-        return _train(config, train_gen, val_gen, steps_per_epoch,
+        return _train(config, train_gen, val_gen, steps_per_epoch, val_steps,
                       points_per_shape, val_shapes, checkpoint, dev, timer,
                       mesh)
     finally:
@@ -123,8 +127,9 @@ def run_training(config: Config, train_gen: Optional[Iterator] = None,
             mesh.close()
 
 
-def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
-           val_shapes, checkpoint, dev, timer, mesh) -> TrainResult:
+def _train(config, train_gen, val_gen, steps_per_epoch, val_steps,
+           points_per_shape, val_shapes, checkpoint, dev, timer,
+           mesh) -> TrainResult:
     from ..data.abc import ABCDataset
 
     num_accum = max(config.accum, 1)
@@ -174,8 +179,10 @@ def _train(config, train_gen, val_gen, steps_per_epoch, points_per_shape,
         return pack_batch(points, labels, normals, prim, rng,
                           points_per_shape, with_normals, dev)
 
+    n_val = (validation_batches(val_shapes, config.batch_size) if val_shapes
+             else val_steps)
     val_batches = [shard_batch(mesh, vb) for vb in validation_sample(
-        val_gen, val_shapes, config.batch_size, config.seed, pack,
+        val_gen, n_val, config.seed, pack,
         lambda x, g: draw_triplet(x.shape[0], g, dev), dev)]
 
     steps, epochs = [], []
