@@ -61,20 +61,29 @@ Phases, one line each (plus detail lines):
         apart from keys) at 10,000 x 128, queries a perturbed copy of the
         stream-a embedding, keys the embedding, and at 300 queries vs 1,000
         keys and 1,000 vs 300 (D = 64), on both grids: max |d| <= 1e-5;
-     K1 exit (tol 1e-6 and 1e-3, 50 iterations), both modes, both grids,
-        at the stream-a embedding and the clustered rows (N = 100 to
-        10,000, D = 64 and 128): the iterations each 128-row block ran (the
-        kernels' output) must be those the rule gives on the kernel's own
-        fixed-count trajectory, and its m that iteration's, exactly; the
-        iterations equal to the plain version's at exit_rows = 128 but
-        where both deltas at the first disputed iteration lie within
-        2.5e-7 (f32, one iteration apart at most) or 1e-4 (bf16) of tol;
-        max |d| from the plain version within the 50-iteration limits
-        above (1e-3 f32, 1e-2 bf16), and at tol 1e-6 from the kernel's own
-        tol = 0 run within 1e-4 (f32) and 1e-2 (bf16), while at 1e-3 the
-        exit must move m by more than those limits somewhere; each of these
-        launches runs under a watchdog, and one that does not return within
-        60 s fails the run (a hung exchange);
+     K1 exit (tol 1e-6 and 1e-3, 50 iterations), both modes, on every SM
+        and on a 33-block grid, at the stream-a embedding and the clustered
+        rows (N = 100 to 20,000, more row blocks than SMs included; D = 64
+        and 128): two launches equal bit for bit; the iterations each
+        128-row block ran (the kernels' output) must be those the rule
+        gives on the kernel's own trajectory (the same launch capped at 1,
+        2, ... iterations), and its m that iteration's, exactly; in bf16
+        its first iteration the fixed-count kernel's bit for bit where both
+        split the work alike; the iterations equal to the plain version's
+        at exit_rows = 128 but where both deltas at the first disputed
+        iteration lie within 2.5e-7 (f32, one iteration apart at most) or
+        1e-4 (bf16) of tol; max |d| from the plain version within the
+        50-iteration limits above (1e-3 f32, 1e-2 bf16), and at tol 1e-6
+        from the kernel's own tol = 0 run within 1e-4 (f32) and 1e-2
+        (bf16), while at 1e-3 the exit must move m by more than those
+        limits somewhere; each of these launches runs under a watchdog, and
+        one that does not return within 60 s fails the run (a hung
+        exchange); with nothing leaving, the bf16 exit's iterations 1-5
+        the fixed-count kernel's bit for bit, and the f32 exit's m after
+        one iteration on every SM, 33 and 8 blocks within 2.5e-7 of each
+        other (its chains of 32 tiles; beside it, the spread of the
+        fixed-count kernel's one step over 1 to 39 sharers, and at noise
+        0.08 the 20,000 rows' distance from plain, readings);
   3b. K3 and K4 at the e2e loss's shapes: the 4 spline slots' chamfer,
      8,000 points of a stream-a shape against 900 surface samples a slot,
      and its masked reverse with slot 3's GT segment empty (every target
@@ -199,11 +208,12 @@ Phases, one line each (plus detail lines):
      allocations, and both kernels' two grids at 10,000 and 4,999 rows;
      K1 exit at 10,000 x 128 x 50, tol 1e-6, on the 8 stream-a embeddings in
      both modes beside tol = 0, with the iterations it runs as a share of
-     50 (kernels.mean_shift_exit_counts) and the fixed-count bound scaled by
-     that share; the same at the clustered 4,999 and 10,000 rows of phase
-     3, where most row blocks leave early; K1 f32 at the e2e attempts'
-     8,000 x 128 x 5 iterations; K3 and K4 at the e2e slot chamfer (K4
-     with the loss's gradient, and its longest chain);
+     50 (kernels.mean_shift_exit_counts), the fixed-count bound scaled by
+     that share and the row blocks still iterating at each iteration; the
+     same at the clustered 4,999, 10,000 and 20,000 rows of phase 3, where
+     most row blocks leave early; K1 f32 at the e2e attempts' 8,000 x 128 x
+     5 iterations; K3 and K4 at the e2e slot chamfer (K4 with the loss's
+     gradient, and its longest chain);
      K2, both entries, on shape 0's
      SIOU matrix and on the first timed batch's 4 in one call: device and
      eager time, the rounds, the time a round (one call against a call
@@ -322,6 +332,9 @@ BENCH_KERNELS = {"ms": ("K3",), "siou": ("K1tc", "K3"),
 # seconds a launch of phase 3 may take before the run fails as hung
 EXIT_TOL, EXIT_TOL_COARSE = 1e-6, 1e-3
 HANG_S = 60.0
+# the exits' second grid: a quarter of the SMs, so that at N >= 4,999 each
+# block's run spans several row blocks
+EXIT_SMALL_GRID = 33
 # Where a row block of K1 exit leaves at another iteration than the plain
 # version's, both deltas at the first disputed iteration must lie within
 # this band of tol, by mode. f32: one iteration apart at most, both deltas
@@ -681,23 +694,24 @@ def sdpa_mean_shift(X, bandwidth, iterations, m0=None):
     return m[0, 0]
 
 
-def k1_launch(kernels, x, bandwidth, bf16, one_block, iterations, tol=0.0,
-              iters=None):
-    """One launch of a tensor-core K1 (tol > 0: its exit kernel, `iters`
-    receiving each row block's iterations) on ms_plan's grid or on one
-    block per 128 rows, under the watchdog -> [N, D]."""
+def k1_launch(kernels, x, bandwidth, bf16, iterations, tol=0.0, iters=None,
+              grid=None):
+    """One launch of a tensor-core K1 under the watchdog -> [N, D]: at tol
+    = 0 the fixed-count kernel on ms_plan's grid; at tol > 0 its exit
+    kernel on at most `grid` blocks (default every SM), `iters` receiving
+    each row block's iterations."""
     n, d = x.shape
     inv = kernels._inv2b2(bandwidth, x.device)
-    blocks = -(-n // kernels.MS_BLOCK_ROWS)
     sms = kernels._sm_count(x.device)
+    if tol > 0.0:
+        return guarded(lambda: kernels._ms_exit(
+            x, inv, iterations, grid or sms, tol, bf16, iters)[:, :d])
     if bf16:
-        g = blocks if one_block else kernels.ms_plan(n, sms)[0]
         return guarded(lambda: kernels._ms_iterations_tc(
-            x, inv, iterations, g, tol, iters)[:, :d])
-    g = blocks if one_block else kernels.ms_plan(
-        n, sms, kernels.MS_TF32_TILE)[0]
+            x, inv, iterations, kernels.ms_plan(n, sms)[0])[:, :d])
     return guarded(lambda: kernels._ms_iterations_tf32(
-        x, x, inv, iterations, g, tol=tol, iters=iters)[:, :d])
+        x, x, inv, iterations,
+        kernels.ms_plan(n, sms, kernels.MS_TF32_TILE)[0])[:, :d])
 
 
 def block_max(v, rows):
@@ -709,21 +723,30 @@ def block_max(v, rows):
     return torch.cat([v, pad]).view(-1, rows).amax(1)
 
 
-def exit_check(kernels, x, bandwidth, bf16, one_block, tol, iterations=50):
-    """K1 exit against its rule: one exit launch, then the fixed-count
-    kernel's trajectory (the same arithmetic, iterations 1, 2, ... from
-    X): each 128-row block must have run exactly the iterations up to the
-    first whose delta (max |m_j - m_(j-1)| over its rows) is <= tol, all
-    `iterations` if none, and its rows must be that iteration's m (max |d|
-    returned). Beside it the plain version's counts at exit_rows = 128
-    (kernels._ms_plain), and where they differ, both deltas there.
-    -> dict of the counts, the mismatches and the errors."""
+def exit_check(kernels, x, bandwidth, bf16, grid, tol, iterations=50):
+    """K1 exit against its rule: two exit launches (equal bit for bit),
+    then the kernel's own trajectory, the same launch capped at 1, 2, ...
+    iterations (up to the cap, it makes the same decisions and so the same
+    splits): each 128-row block must have run exactly the iterations up to
+    the first whose delta (max |m_j - m_(j-1)| over its rows) is <= tol,
+    all `iterations` if none, and its rows must be that iteration's m (max
+    |d| returned). In bf16 the first iteration must be the fixed-count
+    kernel's bit for bit where both split the work alike (the f32 exit adds
+    its tiles in chains, the fixed-count kernel does not). Beside it the
+    plain version's counts at exit_rows = 128 (kernels._ms_plain), and
+    where they differ, both deltas at the first disputed iteration. -> dict
+    of the counts, the mismatches ((block, kernel, plain, kernel delta,
+    plain delta)), the errors and the live row blocks of each iteration."""
     import torch
     rows = kernels.MS_BLOCK_ROWS
-    blocks = -(-x.shape[0] // rows)
+    n = x.shape[0]
+    blocks = -(-n // rows)
     iters = torch.zeros((blocks,), dtype=torch.int32, device=x.device)
-    out = k1_launch(kernels, x, bandwidth, bf16, one_block, iterations, tol,
-                    iters)
+    out = k1_launch(kernels, x, bandwidth, bf16, iterations, tol, iters, grid)
+    iters2 = torch.zeros_like(iters)
+    out2 = k1_launch(kernels, x, bandwidth, bf16, iterations, tol, iters2,
+                     grid)
+    repeat = bool(torch.equal(out, out2) and torch.equal(iters, iters2))
     got = iters.long()
     rule = torch.full((blocks,), iterations, dtype=torch.long,
                       device=x.device)
@@ -731,8 +754,20 @@ def exit_check(kernels, x, bandwidth, bf16, one_block, tol, iterations=50):
     traj = []                                  # the kernel's own deltas
     err_m = torch.zeros((blocks,), device=x.device)
     prev = x
+    first_fixed = None
+    sms = kernels._sm_count(x.device)
+    if bf16 and blocks < sms and kernels.ms_plan(n, sms)[0] == (
+            kernels.ms_exit_active(blocks, -(-n // kernels.MS_TILE),
+                                   min(grid or sms, sms))):
+        first_fixed = False
+    _, plain, p_delta = kernels._ms_plain(x, bandwidth, iterations, bf16,
+                                          tol, rows)
+    last = max(int(got.max()), int(plain.max()))
     for j in range(1, iterations + 1):
-        m_j = k1_launch(kernels, x, bandwidth, bf16, one_block, j)
+        m_j = k1_launch(kernels, x, bandwidth, bf16, j, tol, None, grid)
+        if j == 1 and first_fixed is not None:
+            first_fixed = bool(torch.equal(
+                m_j, k1_launch(kernels, x, bandwidth, bf16, 1)))
         delta = block_max((m_j - prev).abs().amax(1), rows)
         traj.append(delta)
         hit = ~found & ~(delta > tol)
@@ -741,10 +776,8 @@ def exit_check(kernels, x, bandwidth, bf16, one_block, tol, iterations=50):
         at = block_max((out - m_j).abs().amax(1), rows)
         err_m = torch.where(got == j, at, err_m)
         prev = m_j
-        if bool(found.all()) and j >= int(got.max()):
+        if bool(found.all()) and j >= last:
             break
-    _, plain, p_delta = kernels._ms_plain(x, bandwidth, iterations, bf16,
-                                          tol, rows)
     diff = []
     for b in torch.nonzero(got != plain).flatten().tolist():
         j = min(int(got[b]), int(plain[b])) - 1      # the first disputed
@@ -754,7 +787,27 @@ def exit_check(kernels, x, bandwidth, bf16, one_block, tol, iterations=50):
     return {"kernel": got.tolist(), "rule": rule.tolist(),
             "plain": plain.tolist(), "rule_ok": bool((got == rule).all()),
             "max_abs_err_m": float(err_m.max()), "plain_diff": diff,
-            "out": out}
+            "repeat": repeat, "first_fixed": first_fixed,
+            "live": live_per_iteration(iters, iterations), "out": out}
+
+
+def runs(values):
+    """[79, 79, 79, 60] -> "79 x 3, 60": a list with its repeats folded."""
+    out, i = [], 0
+    while i < len(values):
+        j = i
+        while j < len(values) and values[j] == values[i]:
+            j += 1
+        out.append(f"{values[i]}" + (f" x {j - i}" if j - i > 1 else ""))
+        i = j
+    return ", ".join(out)
+
+
+def live_per_iteration(iters, iterations):
+    """The row blocks still iterating at each iteration, from an exit
+    launch's iterations per row block."""
+    v = iters.long().cpu()
+    return [int((v > j).sum()) for j in range(iterations)]
 
 
 def clustered(rng, n, d, k=12, noise=0.08):
@@ -1483,15 +1536,14 @@ def main():
                 print(f"  {kname} ptxas: {line.strip()}")
 
     def wgmma_in_sass():
-        # per instantiation: the fixed-count kernel (template argument
-        # false, "ILb0E") keeps the count it had before the early exit
-        # ("ILb1E") was added beside it
+        # per kernel: the fixed-count one keeps the count it had before the
+        # early exit was added beside it; the exit (ms_exit_kernel) has some
         for kname, src, fixed in (("K1tc", "ms_iterations_tc.cu", 24),
                                   ("K1", "ms_iterations_tf32.cu", 108)):
             by_fn = sass_count_by_function(kernels._lib_path(kname), "HGMMA")
-            kern = [f for f in by_fn if "ms_t" in f and "_kernel" in f]
-            tol0 = sum(by_fn[f] for f in kern if "ILb0E" in f)
-            exit_ = sum(by_fn[f] for f in kern if "ILb1E" in f)
+            tol0 = sum(v for f, v in by_fn.items()
+                       if "ms_tc_kernel" in f or "ms_tf32_kernel" in f)
+            exit_ = sum(v for f, v in by_fn.items() if "ms_exit_kernel" in f)
             report[f"{kname}_hgmma"] = tol0
             report[f"{kname}_exit_hgmma"] = exit_
             check(tol0 == fixed, f"{src} fixed-count kernel: {tol0} HGMMA "
@@ -1580,12 +1632,22 @@ def main():
             ms._subset_sqdist(e, 5000, generator=gen_e), 0.015)))
 
     # K1 exit's sets (phases 3 and 6): the stream-a embedding and clustered
-    # rows at N = 100 to 10,000, D = 64 and 128
+    # rows at N = 100 to 20,000 (157 row blocks, more than the SMs), D = 64
+    # and 128. The 20,000 rows are drawn tighter (noise 0.05): at 0.08 so
+    # many rows sit between modes that even the fixed-count kernels end
+    # beyond the limits that hold an exit to the plain version after 50
+    # iterations
     exit_sets = [(f"stream a {embn.shape[0]} x {embn.shape[1]}", embn, bw)]
     rng_x = np.random.RandomState(0)
-    for n_c, d_c in ((100, 128), (1000, 64), (4999, 128), (10000, 128)):
+    for n_c, d_c, noise in ((100, 128, 0.08), (1000, 64, 0.08),
+                            (4999, 128, 0.08), (10000, 128, 0.08),
+                            (20000, 128, 0.05)):
+        if n_c == 20000:    # the same draw at 0.08, for phase 3's reading
+            rng_08 = np.random.RandomState()
+            rng_08.set_state(rng_x.get_state())
         exit_sets.append((f"clustered {n_c} x {d_c}", torch.from_numpy(
-            clustered(rng_x, n_c, d_c)).to(dev), 0.2))
+            clustered(rng_x, n_c, d_c, noise=noise)).to(dev), 0.2))
+    x08 = torch.from_numpy(clustered(rng_08, 20000, 128)).to(dev)
 
     # ---- 3. kernels against their plain versions
     def kernel_checks():
@@ -1949,13 +2011,16 @@ def main():
                       f"{err:.3e} <= {K1F_TOL_1:g}")
         report["K5_max_abs_err"] = k5_err
 
-        # K1 exit (tol > 0), both modes, both grids, at tol 1e-6 and at
+        # K1 exit (tol > 0), both modes, on every SM and on EXIT_SMALL_GRID
+        # blocks (each holding several row blocks), at tol 1e-6 and at
         # EXIT_TOL_COARSE, where leaving early moves m by far more than the
-        # limits: each row block's iterations and m held to the rule on the
-        # kernel's own fixed-count trajectory (exit_check, exactly); m
-        # within the 50-iteration limit of the plain version at exit_rows =
-        # 128, and its iterations equal to the plain version's but where
-        # both deltas at the first disputed iteration lie within the mode's
+        # limits: two launches equal bit for bit; each row block's
+        # iterations and m held to the rule on the kernel's own trajectory
+        # (exit_check, exactly), whose first iteration is, in bf16, the
+        # fixed-count kernel's bit for bit where both split alike; m within
+        # the 50-iteration limit of the plain version at exit_rows = 128,
+        # and its iterations equal to the plain version's but where both
+        # deltas at the first disputed iteration lie within the mode's
         # EXIT_BAND of tol (f32: and one iteration apart at most); at tol
         # 1e-6, m within 1e-4 (f32) and 1e-2 (bf16) of the kernel's tol = 0
         # run. Every launch runs under the watchdog.
@@ -1966,25 +2031,34 @@ def main():
                 mode = "bf16" if bf16 else "f32"
                 lim = K1TC_TOL_50 if bf16 else K1F_TOL_50
                 band = EXIT_BAND[mode]
+                k_0 = k1_launch(kernels, x, b, bf16, 50)
                 for tol in (EXIT_TOL, EXIT_TOL_COARSE):
                     plain = kernels.mean_shift_iterations_plain(
                         x, b, 50, bf16_dots=bf16, tol=tol,
                         exit_rows=kernels.MS_BLOCK_ROWS)
-                    for one_block in (False, True):
-                        grid = ("one block per 128 rows" if one_block
-                                else "ms_plan grid")
-                        c = exit_check(kernels, x, b, bf16, one_block, tol)
-                        k_0 = k1_launch(kernels, x, b, bf16, one_block, 50)
+                    for grid in (None, EXIT_SMALL_GRID):
+                        gtag = ("every SM" if grid is None
+                                else f"{grid} blocks")
+                        c = exit_check(kernels, x, b, bf16, grid, tol)
                         err = float((c["out"] - plain).abs().max())
                         err0 = float((c["out"] - k_0).abs().max())
                         exit_err[bf16] = max(exit_err[bf16], err)
-                        name = f"K1 exit {mode} {tag}, {grid}, tol {tol:g}"
+                        name = f"K1 exit {mode} {tag}, {gtag}, tol {tol:g}"
                         share = np.mean(c["kernel"]) / 50
                         report.setdefault("K1_exit_checks", []).append({
                             "case": name, "iterations": c["kernel"],
                             "plain_iterations": c["plain"],
                             "plain_diff": c["plain_diff"],
+                            "live_per_iteration": c["live"],
+                            "repeat": c["repeat"],
+                            "first_iteration_fixed": c["first_fixed"],
                             "max_abs_err": err, "tol0_max_abs_err": err0})
+                        check(c["repeat"], f"{name}: two launches equal bit "
+                              "for bit (m and iterations)")
+                        if c["first_fixed"] is not None:
+                            check(c["first_fixed"], f"{name}: its first "
+                                  "iteration is the fixed-count kernel's "
+                                  "bit for bit (one split)")
                         check(c["rule_ok"] and c["max_abs_err_m"] == 0.0,
                               f"{name}: every row block's iterations and m "
                               f"follow the rule on the kernel's own "
@@ -2027,6 +2101,79 @@ def main():
                   f"{EXIT_TOL_COARSE:g}: leaving early moves m by up to "
                   f"{coarse_moved[bf16]:.3e} from the tol = 0 run, more "
                   f"than the {lim:g} held to the plain version")
+        # with no row block leaving (tol 1e-30), the bf16 exit's work split
+        # stays ms_plan's at 10,000 rows: its first 5 iterations must be the
+        # fixed-count kernel's bit for bit (the same arithmetic)
+        same = all(bool(torch.equal(
+            k1_launch(kernels, embn, bw, True, j, 1e-30),
+            k1_launch(kernels, embn, bw, True, j))) for j in range(1, 6))
+        check(same, "K1 exit bf16, nothing leaving: iterations 1-5 the "
+              "fixed-count kernel's bit for bit")
+        # the f32 exit adds its tiles in chains of EXIT_CHAIN, so that the
+        # split moves m by less than EXIT_BAND: with nothing leaving, one
+        # iteration's m on every SM, 33 and 8 blocks must agree within
+        # EXIT_BAND["f32"] on the stream-a embedding and the clustered
+        # 10,000 rows (after 3, a reading: the iterations also carry the
+        # first one's differences on). Beside it, the spread of the
+        # fixed-count kernel over splits, whose chains span a grid block's
+        # whole run: one step of one 128-row block (K5) shared by 1 to 39
+        # blocks
+        x10 = [x for t_, x, _ in exit_sets if x.shape[0] == 10000
+               and t_.startswith("clustered")][0]
+        spread = {}
+        for tag, x, b in ((exit_sets[0][0], embn, bw),
+                          ("clustered 10000 x 128", x10, 0.2)):
+            for j in (1, 3):
+                outs = [k1_launch(kernels, x, b, False, j, 1e-30, None, g)
+                        for g in (None, EXIT_SMALL_GRID, 8)]
+                spread[f"{tag}, {j}"] = max(
+                    float((u - v).abs().max()) for u in outs for v in outs)
+        check(max(v for k, v in spread.items() if k.endswith(", 1"))
+              <= EXIT_BAND["f32"],
+              "K1 exit f32, nothing leaving: one iteration's m on every SM, "
+              f"33 and 8 blocks within {EXIT_BAND['f32']:g} of each other ("
+              + ", ".join(f"{k} iterations {v:.3g}"
+                          for k, v in spread.items()) + ")")
+        inv10 = kernels._inv2b2(0.2, dev)
+        q10 = kernels.mean_shift_iterations_plain(x10, 0.2, 8)[:128]
+        fixed = [kernels._ms_iterations_tf32(q10, x10, inv10, 1, g, "K5")
+                 for g in (1, 2, 8, 39)]
+        p10 = kernels.mean_shift_step_plain(q10, x10, inv10)
+        report["K1_exit_f32_split_spread"] = spread
+        report["K5_split_spread"] = {
+            "spread": max(float((u - v).abs().max()) for u in fixed
+                          for v in fixed),
+            "from_plain": [float((u - p10).abs().max()) for u in fixed]}
+        print("  K5 (the fixed-count tf32 kernel) one step of a 128-row "
+              "block of the clustered 10,000 rows (after 8 plain "
+              "iterations) shared by 1, 2, 8, 39 blocks: max |d| from the "
+              "plain version " + ", ".join(
+                  f"{v:.3g}" for v in report["K5_split_spread"]["from_plain"])
+              + f"; spread {report['K5_split_spread']['spread']:.3g}; the "
+              "f32 exit's spread over its grids " + ", ".join(
+                  f"{v:.3g}" for v in spread.values()), flush=True)
+        # why the 20,000-row exit set is drawn at noise 0.05: the same draw
+        # at 0.08, the fixed-count kernels' and the exits' (tol 1e-6, every
+        # SM) distance from the plain version after 50 iterations (a
+        # reading, beside the limits)
+        far = {}
+        for bf16 in (False, True):
+            mode = "bf16" if bf16 else "f32"
+            p50 = kernels.mean_shift_iterations_plain(x08, 0.2, 50,
+                                                      bf16_dots=bf16)
+            pe = kernels.mean_shift_iterations_plain(
+                x08, 0.2, 50, bf16_dots=bf16, tol=EXIT_TOL,
+                exit_rows=kernels.MS_BLOCK_ROWS)
+            far[mode] = float((k1_launch(kernels, x08, 0.2, bf16, 50)
+                               - p50).abs().max())
+            far[f"{mode}_exit"] = float((k1_launch(
+                kernels, x08, 0.2, bf16, 50, EXIT_TOL) - pe).abs().max())
+        report["clustered_20000_noise_008_max_abs_err"] = far
+        print("  clustered 20,000 x 128 at noise 0.08 (not an exit set), "
+              "max |d| from plain after 50 iterations: fixed-count K1 f32 "
+              f"{far['f32']:.3e}, K1 exit {far['f32_exit']:.3e} (limit "
+              f"{K1F_TOL_50:g}); K1tc {far['bf16']:.3e}, K1tc exit "
+              f"{far['bf16_exit']:.3e} (limit {K1TC_TOL_50:g})", flush=True)
         report["K1tc_exit_max_abs_err"] = exit_err[True]
         report["K1_exit_max_abs_err"] = exit_err[False]
 
@@ -3224,7 +3371,7 @@ def main():
         for tag, kname, src in (("bf16", "K1tc_exit", "ms_iterations_tc"),
                                 ("f32", "K1_exit", "ms_iterations_tf32")):
             bf16 = tag == "bf16"
-            k_ms, k0_ms, shares, k_shares = [], [], [], []
+            k_ms, k0_ms, shares, k_shares, k_live = [], [], [], [], []
             for e, b in emb8:
                 k_ms.append(cuda_ms(lambda: kernels.mean_shift_iterations(
                     e, b, it, bf16_dots=bf16, tol=EXIT_TOL), 3))
@@ -3235,8 +3382,9 @@ def main():
                     / it)
                 k_it = torch.zeros((-(-e.shape[0] // kernels.MS_BLOCK_ROWS),),
                                    dtype=torch.int32, device=dev)
-                k1_launch(kernels, e, b, bf16, False, it, EXIT_TOL, k_it)
+                k1_launch(kernels, e, b, bf16, it, EXIT_TOL, k_it)
                 k_shares.append(float(k_it.float().mean()) / it)
+                k_live.append(live_per_iteration(k_it, it))
             e0, b0 = emb8[0]
             p_ms = cuda_ms(lambda: kernels.mean_shift_iterations_plain(
                 e0, b0, it, bf16_dots=bf16, tol=EXIT_TOL,
@@ -3258,7 +3406,7 @@ def main():
                 # the kernel's own count, beside the plain helper's
                 k_it = torch.zeros((-(-x.shape[0] // kernels.MS_BLOCK_ROWS),),
                                    dtype=torch.int32, device=dev)
-                k1_launch(kernels, x, b, bf16, False, it, EXIT_TOL, k_it)
+                k1_launch(kernels, x, b, bf16, it, EXIT_TOL, k_it)
                 k_share = float(k_it.float().mean()) / it
                 clus[ctag] = {
                     "ms": cuda_ms(lambda: kernels.mean_shift_iterations(
@@ -3267,23 +3415,43 @@ def main():
                         x, b, it, bf16_dots=bf16), 3),
                     "share": c_share, "kernel_share": k_share,
                     "kernel_max_iterations": int(k_it.max()),
-                    "bound_ms": c_bound}
+                    "bound_ms": c_bound,
+                    "live_per_iteration": live_per_iteration(k_it, it)}
                 print(f"[6 times] K1 exit {tag} {ctag} x 50, tol "
                       f"{EXIT_TOL:g}: kernel {clus[ctag]['ms']:.3f} ms, tol "
-                      f"= 0 {clus[ctag]['tol0_ms']:.3f} ms; iterations run "
-                      f"{100.0 * c_share:.1f}% of 50 (the kernel's own "
-                      f"count {100.0 * k_share:.1f}%, its slowest row block "
-                      f"{int(k_it.max())}); bound {c_bound:.3f} ms",
+                      f"= 0 {clus[ctag]['tol0_ms']:.3f} ms (ratio "
+                      f"{clus[ctag]['ms'] / clus[ctag]['tol0_ms']:.3f}); "
+                      f"iterations run {100.0 * c_share:.1f}% of 50 (the "
+                      f"kernel's own count {100.0 * k_share:.1f}%, its "
+                      f"slowest row block {int(k_it.max())}); bound "
+                      f"{c_bound:.3f} ms; live row blocks per iteration "
+                      f"{runs(clus[ctag]['live_per_iteration'])}",
                       flush=True)
+            # the exit's cost with nothing leaving (tol 1e-30) beside tol =
+            # 0, on the first embedding: what an iteration of the exit's
+            # machinery costs
+            e0, b0 = emb8[0]
+            none_ms = cuda_ms(lambda: kernels.mean_shift_iterations(
+                e0, b0, it, bf16_dots=bf16, tol=1e-30), 3)
+            print(f"  K1 exit {tag}, nothing leaving (tol 1e-30), embedding "
+                  f"0: {none_ms:.3f} ms beside tol = 0's {k0_ms[0]:.3f} "
+                  f"({1000.0 * (none_ms - k0_ms[0]) / it:.2f} us an "
+                  "iteration)", flush=True)
             report[f"{kname}_ms"] = {"ms": k_ms, "tol0_ms": k0_ms,
+                                     "none_leaving_ms": none_ms,
                                      "share": shares,
                                      "kernel_share": k_shares,
+                                     "live_per_iteration": k_live,
                                      "plain_ms": p_ms, "clustered": clus}
+            for i, live in enumerate(k_live):
+                print(f"  K1 exit {tag} stream-a embedding {i}: live row "
+                      f"blocks per iteration {runs(live)}")
             print(f"[6 times] K1 exit {tag} 10000x128x50, tol {EXIT_TOL:g}, "
                   f"8 stream-a embeddings: kernel {np.mean(k_ms):.3f} ms ("
                   + ", ".join(f"{v:.3f}" for v in k_ms) + "), tol = 0 "
                   f"{np.mean(k0_ms):.3f} ms (" + ", ".join(
-                      f"{v:.3f}" for v in k0_ms) + f"); iterations run "
+                      f"{v:.3f}" for v in k0_ms) + f"; ratio of the means "
+                  f"{np.mean(k_ms) / np.mean(k0_ms):.3f}); iterations run "
                   f"{100.0 * share:.1f}% of 50 (" + ", ".join(
                       f"{100.0 * v:.1f}" for v in shares) + "; the kernel's "
                   "own counts " + ", ".join(

@@ -64,15 +64,9 @@
 // A wait that never ends traps instead of hanging the card.
 //
 // The early exit (tol > 0; the TPU kernel's early_exit=True variant,
-// _make_ms_multi_kernel :165-180, chosen at :213) is the EXIT instantiation
-// of the same kernel, with the rule and its helpers in ms_exit.cuh; the
-// tol = 0 one keeps its code. The previous m of the delta lives in an L2
-// workspace, since shared memory holds m only as bf16; a row block that
-// leaves writes its f32 m and the iterations it ran. All sharers of a row
-// block leave at the same iteration, so no waiter is left on a counter.
-// The producer learns each iteration's decisions behind an mbarrier before
-// it streams the next iteration's tiles, so no bulk copy is in flight when
-// the block leaves (the price: no prefetch across an iteration's end).
+// _make_ms_multi_kernel :165-180, chosen at :213) is ms_exit.cuh's kernel
+// on this source's tile pipeline (segment_tiles) and m operand (store_m):
+// the live row blocks' work split anew every iteration, m through L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +83,7 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;            // 128 x 40 + 256 x 232 <= 384 x 168
 constexpr uint32_t TILE_BYTES = TILE * D * 2; // 16 KB
 constexpr uint32_t HALF_BYTES = TILE * 128;   // one 64-column half of a tile
+constexpr uint32_t M_WG_BYTES = TILE_BYTES;   // a consumer's m (bf16, swizzled)
 // a block's partial O and row sums in the workspace, per consumer: 16
 // float4 and 2 floats per thread, each array in thread order
 constexpr int PART_FLOATS = CONSUMERS * (TILE * D + 2 * 128);
@@ -405,6 +400,28 @@ __device__ __forceinline__ void normalize_rows(float (&o)[64], float rs0,
     }
 }
 
+// This thread's m (rows r, r + 8, the accumulator layout) as bf16 into the
+// warpgroup's swizzled A tile at `m_tile`; the async proxy (wgmma) must see
+// these generic-proxy stores.
+__device__ __forceinline__ void store_m(const float (&o)[64], uint32_t m_tile,
+                                        int r, int q, int wg) {
+    wg_barrier(1 + wg);   // every wgmma of this warpgroup has read the old m
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * q;
+        asm volatile("st.shared.b32 [%0], %1;"
+                     :: "r"(m_tile + tile_offset(r, col)),
+                        "r"(pack_bf16(o[4 * j], o[4 * j + 1]))
+                     : "memory");
+        asm volatile("st.shared.b32 [%0], %1;"
+                     :: "r"(m_tile + tile_offset(r + 8, col)),
+                        "r"(pack_bf16(o[4 * j + 2], o[4 * j + 3]))
+                     : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    wg_barrier(1 + wg);
+}
+
 // The normalised rows to `out` (f32, rows < n) if `last` and `write_out`,
 // or, if not `last`, as bf16 into the swizzled A tile at `m_tile`.
 __device__ __forceinline__ void store_rows(const float (&o)[64],
@@ -427,23 +444,7 @@ __device__ __forceinline__ void store_rows(const float (&o)[64],
         }
         return;
     }
-    // the bf16 m back into the swizzled A tile; the async proxy (wgmma)
-    // must see these generic-proxy stores
-    wg_barrier(1 + wg);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-        const int col = 8 * j + 2 * q;
-        asm volatile("st.shared.b32 [%0], %1;"
-                     :: "r"(m_tile + tile_offset(r, col)),
-                        "r"(pack_bf16(o[4 * j], o[4 * j + 1]))
-                     : "memory");
-        asm volatile("st.shared.b32 [%0], %1;"
-                     :: "r"(m_tile + tile_offset(r + 8, col)),
-                        "r"(pack_bf16(o[4 * j + 2], o[4 * j + 3]))
-                     : "memory");
-    }
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    wg_barrier(1 + wg);
+    store_m(o, m_tile, r, q, wg);
 }
 
 __device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
@@ -455,16 +456,71 @@ __device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
     store_rows(o, m_tile, out, row0, n, r, q, wg, last, write_out);
 }
 
-#include "ms_exit.cuh"
+// The tiles [t0, t1) of one row block against the warpgroup's m at my_m:
+// o = P X and the row sums (not yet over the quad) from zero, each tile's
+// ring slot given back to the producer. A software pipeline: the scores of
+// the next tile are issued with the update of this one, and their
+// exponentials run while the tensor cores do the update; they become the
+// next A fragment only after the update retired.
+__device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
+                                              float& rs1, uint32_t my_m,
+                                              uint32_t x_smem,
+                                              uint32_t full_bar,
+                                              uint32_t empty_bar, int& stage,
+                                              uint32_t& phase, int t0, int t1,
+                                              int n, int q, float c,
+                                              int lane) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    rs0 = 0.f;   // row sums of rows r, r + 8
+    rs1 = 0.f;
+    float s[32];
+    uint32_t p[16];
+    mbar_wait(full_bar + 8 * stage, phase);
+    wg_fence();
+    issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    exp_tile(s, rs0, rs1, t0, n, q, c);
+    pack_tile(s, p);
+    for (int t = t0; t + 1 < t1; ++t) {
+        const int cur = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        mbar_wait(full_bar + 8 * stage, phase);
+        reg_fence(s);
+        reg_fence(p);
+        reg_fence(o);
+        wg_fence();   // every register write lands before wgmma
+        issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
+        wg_commit();
+        issue_update(o, p, x_smem + cur * TILE_BYTES);
+        wg_commit();
+        wg_wait<1>();   // the scores; the update may still run
+        reg_fence(s);
+        exp_tile(s, rs0, rs1, t + 1, n, q, c);
+        wg_wait<0>();
+        reg_fence(o);
+        reg_fence(p);
+        if (lane == 0) mbar_arrive(empty_bar + 8 * cur);
+        pack_tile(s, p);
+    }
+    reg_fence(p);
+    reg_fence(o);
+    wg_fence();
+    issue_update(o, p, x_smem + stage * TILE_BYTES);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(o);
+    if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+}
 
-template <bool EXIT>
 __global__ void __launch_bounds__(THREADS, 1)
 ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
              const float* __restrict__ inv2b2_ptr, float* __restrict__ ws,
              unsigned* __restrict__ counters, int n, int n_tiles,
-             int n_blocks, int iterations, int slots,
-             const float* __restrict__ x32, float* __restrict__ prev,
-             int* __restrict__ iters, float tol) {
+             int n_blocks, int iterations, int slots) {
     extern __shared__ uint8_t smem_raw[];
     // tiles 1024-byte aligned, as the 128-byte swizzle requires
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -473,7 +529,6 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
     const uint32_t full_bar = x_smem + STAGES * TILE_BYTES;
     const uint32_t empty_bar = full_bar + 8 * STAGES;
     const uint32_t m_full = empty_bar + 8 * STAGES;
-    const ExitSmem ex = exit_smem(smem_raw, m_full + 8);   // exit variant
     const int wg = threadIdx.x / 128;
     const int tid = threadIdx.x % 128;
 
@@ -501,16 +556,13 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
             mbar_init(empty_bar + 8 * s, CONSUMERS * 4);  // one per warp
         }
         mbar_init(m_full, 1);
-        if (EXIT) mbar_init(ex.bar, 1);
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
 
     if (wg == CONSUMERS) {
         // ---- producer: one thread loads m of each segment's row block and
-        // streams the segments' X tiles, every iteration; in the exit
-        // variant only those of row blocks still iterating, as the
-        // consumers decided at the end of the last iteration
+        // streams the segments' X tiles, every iteration
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
                      :: "n"(PRODUCER_REGS));
         if (tid == 0) {
@@ -521,13 +573,8 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
                           CONSUMERS * TILE_BYTES, m_full);
             int stage = 0;
             uint32_t phase = 0;
-            int done0 = 0, done1 = 0;
             for (int it = 0; it < iterations; ++it) {
-                if (EXIT && it > 0
-                    && await_decisions(ex, it, nseg, done0, done1))
-                    break;
                 for (int k = 0; k < nseg; ++k) {
-                    if (EXIT && (k ? done1 : done0)) continue;
                     const Segment sg = k ? seg1 : seg0;
                     for (int t = sg.t0; t < sg.t1; ++t) {
                         mbar_wait(empty_bar + 8 * stage, phase ^ 1);
@@ -554,8 +601,6 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
         const int part_rs = wg * (TILE * D + 2 * 128) + TILE * D + tid;
         mbar_wait(m_full, 0);
 
-        // exit variant: whether each segment's row block has left the loop
-        bool done0 = false, done1 = false;
         int stage = 0;
         uint32_t phase = 0;
         for (int it = 0; it < iterations; ++it) {
@@ -564,74 +609,16 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
                               * PART_FLOATS;
 #pragma unroll 1
             for (int k = 0; k < nseg; ++k) {
-                if (EXIT && (k ? done1 : done0)) continue;
                 const Segment sg = k ? seg1 : seg0;
                 const uint32_t my_m = m_smem + (k * CONSUMERS + wg) * TILE_BYTES;
                 float o[64];
-#pragma unroll
-                for (int i = 0; i < 64; ++i) o[i] = 0.f;
-                float rs0 = 0.f, rs1 = 0.f;   // row sums of rows r, r + 8
-
-                // Software pipeline over the segment's tiles: the scores of
-                // the next tile are issued with the update of this one, and
-                // their exponentials run while the tensor cores do the
-                // update; they become the next A fragment only after the
-                // update retired.
-                float s[32];
-                uint32_t p[16];
-                mbar_wait(full_bar + 8 * stage, phase);
-                wg_fence();
-                issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
-                wg_commit();
-                wg_wait<0>();
-                reg_fence(s);
-                exp_tile(s, rs0, rs1, sg.t0, n, q, c);
-                pack_tile(s, p);
-                for (int t = sg.t0; t + 1 < sg.t1; ++t) {
-                    const int cur = stage;
-                    if (++stage == STAGES) { stage = 0; phase ^= 1; }
-                    mbar_wait(full_bar + 8 * stage, phase);
-                    reg_fence(s);
-                    reg_fence(p);
-                    reg_fence(o);
-                    wg_fence();   // every register write lands before wgmma
-                    issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
-                    wg_commit();
-                    issue_update(o, p, x_smem + cur * TILE_BYTES);
-                    wg_commit();
-                    wg_wait<1>();   // the scores; the update may still run
-                    reg_fence(s);
-                    exp_tile(s, rs0, rs1, t + 1, n, q, c);
-                    wg_wait<0>();
-                    reg_fence(o);
-                    reg_fence(p);
-                    if (lane == 0) mbar_arrive(empty_bar + 8 * cur);
-                    pack_tile(s, p);
-                }
-                reg_fence(p);
-                reg_fence(o);
-                wg_fence();
-                issue_update(o, p, x_smem + stage * TILE_BYTES);
-                wg_commit();
-                wg_wait<0>();
-                reg_fence(o);
-                if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
-                if (++stage == STAGES) { stage = 0; phase ^= 1; }
-
+                float rs0, rs1;
+                segment_tiles(o, rs0, rs1, my_m, x_smem, full_bar, empty_bar,
+                              stage, phase, sg.t0, sg.t1, n, q, c, lane);
                 const int row0 = (sg.b * CONSUMERS + wg) * TILE;
                 if (sg.contrib == 1) {
-                    if (EXIT) {
-                        normalize_rows(o, rs0, rs1);
-                        const bool leave = decide<TILE>(
-                            o, x32, prev, ex.red, iters, sg.b, true, g, k,
-                            it, iterations, row0 + r, n, q, wg, tid, tol);
-                        (k ? done1 : done0) = leave;
-                        store_rows(o, my_m, out, row0, n, r, q, wg,
-                                   last || leave, true);
-                    } else {
-                        finish_rows(o, rs0, rs1, my_m, out, row0, n, r, q,
-                                    wg, last, true);
-                    }
+                    finish_rows(o, rs0, rs1, my_m, out, row0, n, r, q, wg,
+                                last, true);
                     continue;
                 }
                 // publish this block's partial of the row block
@@ -652,7 +639,7 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
 #pragma unroll 1
             for (int k = 0; k < nseg; ++k) {
                 const Segment sg = k ? seg1 : seg0;
-                if (sg.contrib == 1 || (EXIT && (k ? done1 : done0))) continue;
+                if (sg.contrib == 1) continue;
                 if (threadIdx.x == 0)
                     wait_count(counters + sg.b, (it + 1) * sg.contrib);
                 consumers_barrier();
@@ -676,71 +663,30 @@ ms_tc_kernel(const uint8_t* __restrict__ xt, float* __restrict__ out,
                 const int row0 = (sg.b * CONSUMERS + wg) * TILE;
                 const uint32_t my_m =
                     m_smem + (k * CONSUMERS + wg) * TILE_BYTES;
-                if (EXIT) {
-                    normalize_rows(o, rs0, rs1);
-                    const bool leave = decide<TILE>(
-                        o, x32, prev, ex.red, iters, sg.b, sg.slot == 0, g, k,
-                        it, iterations, row0 + r, n, q, wg, tid, tol);
-                    (k ? done1 : done0) = leave;
-                    store_rows(o, my_m, out, row0, n, r, q, wg, last || leave,
-                               sg.slot == 0);
-                } else {
-                    finish_rows(o, rs0, rs1, my_m, out, row0, n, r, q, wg,
-                                last, sg.slot == 0);
-                }
-            }
-            if (EXIT) {
-                publish_decisions(ex, done0, done1);
-                if (done0 && (nseg == 1 || done1)) break;
+                finish_rows(o, rs0, rs1, my_m, out, row0, n, r, q, wg, last,
+                            sg.slot == 0);
             }
         }
     }
 }
 
-// One launch of the EXIT or the fixed-count kernel (see the entry points).
-template <bool EXIT>
-int launch(const void* xt, void* out, const void* inv2b2, void* ws,
-           void* counters, int n, int iterations, int grid, int slots,
-           const void* x32, void* prev, void* iters, float tol,
-           void* stream) {
-    const int n_tiles = (n + TILE - 1) / TILE;
-    const int n_blocks = (n + ROWS - 1) / ROWS;
-    if (n <= 0 || iterations < 1 || grid < n_blocks
-        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = SMEM_BYTES + (EXIT ? EXIT_SMEM_EXTRA : 0);
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tc_kernel<EXIT>);
-    if (err != cudaSuccess) return (int)err;
-    // setmaxnreg can only hand the consumers what the launch allocated
-    if (attr.numRegs < REGS_AT_LAUNCH) return (int)cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(ms_tc_kernel<EXIT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
-    float* out_ = static_cast<float*>(out);
-    const float* inv2b2_ = static_cast<const float*>(inv2b2);
-    float* ws_ = static_cast<float*>(ws);
-    unsigned* counters_ = static_cast<unsigned*>(counters);
-    const float* x32_ = static_cast<const float*>(x32);
-    float* prev_ = static_cast<float*>(prev);
-    int* iters_ = static_cast<int*>(iters);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (grid == n_blocks) {
-        ms_tc_kernel<EXIT><<<grid, THREADS, smem, s>>>(
-            xt_, out_, inv2b2_, ws_, counters_, n, n_tiles, n_blocks,
-            iterations, slots, x32_, prev_, iters_, tol);
-    } else {
-        void* args[] = {&xt_, &out_, &inv2b2_, &ws_, &counters_, (void*)&n,
-                        (void*)&n_tiles, (void*)&n_blocks, &iterations,
-                        &slots, &x32_, &prev_, &iters_, &tol};
-        err = cudaLaunchCooperativeKernel((const void*)ms_tc_kernel<EXIT>,
-                                          grid, THREADS, args, smem, s);
-        if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaGetLastError();
+// The exit's cap on a block's run, in X tiles (kernels.MS_EXIT_MIN_RUN)
+constexpr int EXIT_MIN_RUN = 8;
+
+// The exit's tiles of one segment: segment_tiles, o whole (the bf16 mode's
+// limits leave its rounding by the split far below them; `sums` unused).
+__device__ __forceinline__ void exit_tiles(float (&o)[64], float& rs0,
+                                           float& rs1, uint32_t my_m,
+                                           uint32_t x_smem, uint32_t full_bar,
+                                           uint32_t empty_bar, int& stage,
+                                           uint32_t& phase, int t0, int t1,
+                                           int n, int q, float c, int lane,
+                                           float*) {
+    segment_tiles(o, rs0, rs1, my_m, x_smem, full_bar, empty_bar, stage,
+                  phase, t0, t1, n, q, c, lane);
 }
+
+#include "ms_exit.cuh"
 
 }  // namespace
 
@@ -758,21 +704,54 @@ extern "C" int ms_iterations_tc(const void* xt, void* out, const void* inv2b2,
                                 void* ws, void* counters, int n,
                                 int iterations, int grid, int slots,
                                 void* stream) {
-    return launch<false>(xt, out, inv2b2, ws, counters, n, iterations, grid,
-                         slots, nullptr, nullptr, nullptr, 0.f, stream);
+    const int n_tiles = (n + TILE - 1) / TILE;
+    const int n_blocks = (n + ROWS - 1) / ROWS;
+    if (n <= 0 || iterations < 1 || grid < n_blocks
+        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
+        return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tc_kernel);
+    if (err != cudaSuccess) return (int)err;
+    // setmaxnreg can only hand the consumers what the launch allocated
+    if (attr.numRegs < REGS_AT_LAUNCH) return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(ms_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
+    float* out_ = static_cast<float*>(out);
+    const float* inv2b2_ = static_cast<const float*>(inv2b2);
+    float* ws_ = static_cast<float*>(ws);
+    unsigned* counters_ = static_cast<unsigned*>(counters);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (grid == n_blocks) {
+        ms_tc_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+            xt_, out_, inv2b2_, ws_, counters_, n, n_tiles, n_blocks,
+            iterations, slots);
+    } else {
+        void* args[] = {&xt_, &out_, &inv2b2_, &ws_, &counters_, (void*)&n,
+                        (void*)&n_tiles, (void*)&n_blocks, &iterations,
+                        &slots};
+        err = cudaLaunchCooperativeKernel((const void*)ms_tc_kernel, grid,
+                                          THREADS, args, SMEM_BYTES, s);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 // K1 exit, bf16 mode (tol > 0): as ms_iterations_tc, and each 128-row block
-// stops once max |new m - m| over its rows < n is <= tol. x32: X in f32,
-// [n, 128]; prev: grid x 2 x 128 x 128 f32 of workspace (each grid block's
-// previous m of its up to two row blocks); iters: ceil(n / 128) int32, the
-// iterations each row block ran.
+// stops once max |new m - m| over its rows < n is <= tol (ms_exit.cuh). x32:
+// X in f32, [n, 128]; part: 2 x grid x PART_FLOATS f32 (two partials per
+// grid block: its run's first and last segments); mstate: ceil(n / 128) x
+// 128 x 128 f32 (each row block's m); iters: ceil(n / 128) int32, zero,
+// receiving the iterations each row block ran; counters: 1 + 2 x grid u32,
+// zero (the grid barrier, a flag per partial). grid: at most one block per
+// SM and per EXIT_MIN_RUN X tiles of the row blocks, a cooperative launch.
 extern "C" int ms_iterations_tc_exit(const void* xt, const void* x32,
-                                     void* out, const void* inv2b2, void* ws,
-                                     void* prev, void* iters, void* counters,
-                                     int n, int iterations, int grid,
-                                     int slots, float tol, void* stream) {
-    if (!(tol > 0.f)) return (int)cudaErrorInvalidValue;
-    return launch<true>(xt, out, inv2b2, ws, counters, n, iterations, grid,
-                        slots, x32, prev, iters, tol, stream);
+                                     void* out, const void* inv2b2,
+                                     void* part, void* mstate, void* iters,
+                                     void* counters, int n, int iterations,
+                                     int grid, float tol, void* stream) {
+    return exit_launch(xt, x32, out, inv2b2, part, mstate, iters, counters, n,
+                       (n + TILE - 1) / TILE, iterations, grid, tol, stream);
 }

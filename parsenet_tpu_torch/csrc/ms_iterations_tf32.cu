@@ -86,14 +86,10 @@
 // A wait that never ends traps instead of hanging the card.
 //
 // K1's early exit (tol > 0; the TPU kernel's early_exit=True variant,
-// _make_ms_multi_kernel :165-180, chosen at :213) is the EXIT instantiation
-// of the same kernel, with the rule and its helpers in ms_exit.cuh (shared
-// with the bf16 kernel); the tol = 0 one keeps its code. The delta is
-// taken on the f32 m before it is split into hi and lo. Each of the two
-// row blocks of a block that spans two (the one whose m is spilled to L2
-// too) leaves on its own delta; the producer streams the next iteration's
-// tiles only for row blocks still iterating, after the consumers'
-// decision.
+// _make_ms_multi_kernel :165-180, chosen at :213) is ms_exit.cuh's kernel
+// (shared with the bf16 kernel) on this source's tile pipeline
+// (segment_tiles) and m operand (store_m); the delta is taken on the f32 m
+// before it is split into hi and lo.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,6 +111,7 @@ constexpr uint32_t X_KBLK = TILE * 128;         // 32 columns of a tile's 16 row
 constexpr uint32_t X_HALF = 4 * X_KBLK;         // a tile's rows x features, hi or lo
 constexpr uint32_t X_TRANS = 2 * X_HALF;        // offset of the transposed half
 constexpr uint32_t TILE_BYTES = 2 * X_TRANS;    // 32 KB
+constexpr uint32_t M_WG_BYTES = 2 * M_HALF;     // a consumer's m, hi and lo
 // a block's partial O and row sums in the workspace, per consumer: 16
 // float4 and 2 floats per thread, each array in thread order
 constexpr int PART_FLOATS = CONSUMERS * (MTILE * D + 2 * 128);
@@ -419,26 +416,6 @@ __device__ __forceinline__ void store_m(const float (&v)[64], uint32_t m,
     wg_barrier(1 + wg);
 }
 
-// This thread's values of rows row0 + r, row0 + r + 8 of the f32 queries
-// [nq, 128] (0 beyond nq), in the accumulator layout.
-__device__ __forceinline__ void load_rows(float (&v)[64],
-                                          const float* __restrict__ src,
-                                          int row0, int nq, int r, int q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int g = row0 + r + 8 * h;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-            float2 a = make_float2(0.f, 0.f);
-            if (g < nq)
-                a = *reinterpret_cast<const float2*>(src + (size_t)g * D
-                                                     + 8 * j + 2 * q);
-            v[4 * j + 2 * h] = a.x;
-            v[4 * j + 2 * h + 1] = a.y;
-        }
-    }
-}
-
 // The work of an iteration is n_blocks x n_tiles units (a 128-row block of
 // m against a 16-row key tile), in row-block-major order; block g of the
 // grid takes units [start(g), start(g + 1)), start(g) = floor(g U / grid).
@@ -540,18 +517,156 @@ __device__ __forceinline__ void finish_rows(float (&o)[64], float rs0,
     store_rows(o, dest, m_smem, spill, out, row0, nq, r, q, wg, tid);
 }
 
-#include "ms_exit.cuh"
-static_assert(SMEM_BYTES + EXIT_SMEM_EXTRA <= 232448,
-              "shared memory of one block");
+// The early exit's chains: its tensor cores add at most this many key
+// tiles into the accumulator (a chain: the tiles of one aligned group of
+// EXIT_CHAIN in the row block) before the chain is added, in f32, into the
+// segment's sums in L2. The accumulator's error grows with the length of
+// its chain, so unbounded chains would tie m to the work split, which the
+// exit changes as row blocks leave (chip_smoke.py phase 3 prints the
+// fixed-count kernel's spread over splits beside the exit's); bounded and
+// aligned, they leave the split only the order of the f32 additions.
+// Shorter chains cost more additions; longer ones let the split move m by
+// more (PERF.md §6).
+constexpr int EXIT_CHAIN = 32;
 
-template <bool EXIT>
+// This thread's accumulator into the segment's sums at `sums` (16 float4,
+// the partial's thread order): stored if `first`, else added at L2 (one
+// thread per address, in program order).
+__device__ __forceinline__ void add_chain(const float (&o)[64], float* sums,
+                                          bool first) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+        float* p = sums + i * 512;
+        if (first)
+            asm volatile("st.relaxed.gpu.global.v4.f32 [%0], {%1, %2, %3, %4};"
+                         :: "l"(p), "f"(o[4 * i]), "f"(o[4 * i + 1]),
+                            "f"(o[4 * i + 2]), "f"(o[4 * i + 3]) : "memory");
+        else
+            asm volatile("red.relaxed.gpu.global.add.v4.f32 [%0], "
+                         "{%1, %2, %3, %4};"
+                         :: "l"(p), "f"(o[4 * i]), "f"(o[4 * i + 1]),
+                            "f"(o[4 * i + 2]), "f"(o[4 * i + 3]) : "memory");
+    }
+}
+
+// The segment's sums back from `sums` (after this thread's own additions).
+__device__ __forceinline__ void load_sums(float (&o)[64], const float* sums) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+        asm volatile("ld.relaxed.gpu.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(o[4 * i]), "=f"(o[4 * i + 1]), "=f"(o[4 * i + 2]),
+                       "=f"(o[4 * i + 3])
+                     : "l"(sums + i * 512) : "memory");
+}
+
+// The key tiles [t0, t1) of one row block against the warpgroup's m at
+// my_m: o = P X and the row sums (not yet over the quad) from zero, each
+// tile's ring slot given back to the producer. A software pipeline: the
+// scores of the next tile are issued with the update of this one, and
+// their exponentials run while the tensor cores do the update; they are
+// split into the next A fragments only after the update retired. CHAINS
+// (the early exit): o is added into `sums` and zeroed after the last tile
+// of each aligned group of EXIT_CHAIN, and at the end, where it is loaded
+// back: o holds the sums on return. (A loop over chains around the
+// pipeline instead spills: ptxas, 220 bytes.)
+template <bool CHAINS = false>
+__device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
+                                              float& rs1, uint32_t my_m,
+                                              uint32_t x_smem,
+                                              uint32_t full_bar,
+                                              uint32_t empty_bar, int& stage,
+                                              uint32_t& phase, int t0, int t1,
+                                              int nk, int q, float c,
+                                              int lane,
+                                              float* sums = nullptr) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    rs0 = 0.f;   // row sums of rows r, r + 8
+    rs1 = 0.f;
+    bool fresh = true;   // CHAINS: no chain has reached `sums` yet
+    float s[8];
+    uint32_t ph[8], pl[8];
+    mbar_wait(full_bar + 8 * stage, phase);
+    wg_fence();
+    issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    exp_tile(s, rs0, rs1, t0, nk, q, c);
+    split_tile(s, ph, pl);
+    for (int t = t0; t + 1 < t1; ++t) {
+        const int cur = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        mbar_wait(full_bar + 8 * stage, phase);
+        reg_fence(s);
+        reg_fence(ph);
+        reg_fence(pl);
+        reg_fence(o);
+        wg_fence();   // every register write lands before wgmma
+        issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
+        wg_commit();
+        issue_update(o, ph, pl, x_smem + cur * TILE_BYTES);
+        wg_commit();
+        wg_wait<1>();   // the scores; the update may still run
+        reg_fence(s);
+        exp_tile(s, rs0, rs1, t + 1, nk, q, c);
+        wg_wait<0>();
+        reg_fence(o);
+        reg_fence(ph);
+        reg_fence(pl);
+        if (lane == 0) mbar_arrive(empty_bar + 8 * cur);
+        if constexpr (CHAINS) {
+            if ((t + 1) % EXIT_CHAIN == 0) {   // tile t ends its chain
+                add_chain(o, sums, fresh);
+#pragma unroll
+                for (int i = 0; i < 64; ++i) o[i] = 0.f;
+                fresh = false;
+            }
+        }
+        split_tile(s, ph, pl);
+    }
+    reg_fence(ph);
+    reg_fence(pl);
+    reg_fence(o);
+    wg_fence();
+    issue_update(o, ph, pl, x_smem + stage * TILE_BYTES);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(o);
+    if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    if constexpr (CHAINS) {
+        add_chain(o, sums, fresh);
+        load_sums(o, sums);
+    }
+}
+
+// The exit's cap on a block's run, in key tiles
+// (kernels.MS_TF32_EXIT_MIN_RUN)
+constexpr int EXIT_MIN_RUN = 16;
+
+// The exit's tiles [t0, t1) of one segment, in chains (`sums`: this
+// thread's floats of the segment's partial, where the chains add up); o
+// holds the segment's sums on return.
+__device__ __forceinline__ void exit_tiles(float (&o)[64], float& rs0,
+                                           float& rs1, uint32_t my_m,
+                                           uint32_t x_smem, uint32_t full_bar,
+                                           uint32_t empty_bar, int& stage,
+                                           uint32_t& phase, int t0, int t1,
+                                           int n, int q, float c, int lane,
+                                           float* sums) {
+    segment_tiles<true>(o, rs0, rs1, my_m, x_smem, full_bar, empty_bar, stage,
+                        phase, t0, t1, n, q, c, lane, sums);
+}
+
+#include "ms_exit.cuh"
+
 __global__ void __launch_bounds__(THREADS, 1)
 ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                float* __restrict__ out, const float* __restrict__ inv2b2_ptr,
                float* __restrict__ ws, unsigned* __restrict__ counters,
                int nq, int nk, int n_tiles, int n_blocks, int iterations,
-               int slots, float* __restrict__ prev, int* __restrict__ iters,
-               float tol) {
+               int slots) {
     extern __shared__ uint8_t smem_raw[];
     // tiles 1024-byte aligned, as the 128-byte swizzle requires
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -559,7 +674,6 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
     const uint32_t x_smem = base + CONSUMERS * 2 * M_HALF;
     const uint32_t full_bar = x_smem + STAGES * TILE_BYTES;
     const uint32_t empty_bar = full_bar + 8 * STAGES;
-    const ExitSmem ex = exit_smem(smem_raw, empty_bar + 8 * STAGES);
     const int wg = threadIdx.x / 128;
     const int tid = threadIdx.x % 128;
 
@@ -586,27 +700,20 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
             mbar_init(full_bar + 8 * s, 1);
             mbar_init(empty_bar + 8 * s, CONSUMERS * 4);  // one per warp
         }
-        if (EXIT) mbar_init(ex.bar, 1);
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
 
     if (wg == CONSUMERS) {
         // ---- producer: one thread streams the segments' key tiles, every
-        // iteration; in the exit variant only those of row blocks still
-        // iterating, as the consumers decided at the end of the last one
+        // iteration
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
                      :: "n"(PRODUCER_REGS));
         if (tid == 0) {
             int stage = 0;
             uint32_t phase = 0;
-            int done0 = 0, done1 = 0;
             for (int it = 0; it < iterations; ++it) {
-                if (EXIT && it > 0
-                    && await_decisions(ex, it, nseg, done0, done1))
-                    break;
                 for (int k = 0; k < nseg; ++k) {
-                    if (EXIT && (k ? done1 : done0)) continue;
                     const Segment sg = k ? seg1 : seg0;
                     for (int t = sg.t0; t < sg.t1; ++t) {
                         mbar_wait(empty_bar + 8 * stage, phase ^ 1);
@@ -635,8 +742,6 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
         // the spilled m of the second segment's row block (exchange grids)
         float* spill = ws + (size_t)2 * n_blocks * slots * PART_FLOATS
                           + (size_t)g * SPILL_FLOATS;
-        // exit variant: whether each segment's row block has left the loop
-        bool done0 = false, done1 = false;
 
         int stage = 0;
         uint32_t phase = 0;
@@ -646,7 +751,6 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                               * PART_FLOATS;
 #pragma unroll 1
             for (int k = 0; k < nseg; ++k) {
-                if (EXIT && (k ? done1 : done0)) continue;
                 const Segment sg = k ? seg1 : seg0;
                 const int row0 = (sg.b * CONSUMERS + wg) * MTILE;
                 float o[64];
@@ -664,73 +768,12 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                     }
                     store_m(o, my_m, r, q, wg);
                 }
-#pragma unroll
-                for (int i = 0; i < 64; ++i) o[i] = 0.f;
-                float rs0 = 0.f, rs1 = 0.f;   // row sums of rows r, r + 8
-
-                // Software pipeline over the segment's tiles: the scores of
-                // the next tile are issued with the update of this one, and
-                // their exponentials run while the tensor cores do the
-                // update; they are split into the next A fragments only
-                // after the update retired.
-                float s[8];
-                uint32_t ph[8], pl[8];
-                mbar_wait(full_bar + 8 * stage, phase);
-                wg_fence();
-                issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
-                wg_commit();
-                wg_wait<0>();
-                reg_fence(s);
-                exp_tile(s, rs0, rs1, sg.t0, nk, q, c);
-                split_tile(s, ph, pl);
-                for (int t = sg.t0; t + 1 < sg.t1; ++t) {
-                    const int cur = stage;
-                    if (++stage == STAGES) { stage = 0; phase ^= 1; }
-                    mbar_wait(full_bar + 8 * stage, phase);
-                    reg_fence(s);
-                    reg_fence(ph);
-                    reg_fence(pl);
-                    reg_fence(o);
-                    wg_fence();   // every register write lands before wgmma
-                    issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
-                    wg_commit();
-                    issue_update(o, ph, pl, x_smem + cur * TILE_BYTES);
-                    wg_commit();
-                    wg_wait<1>();   // the scores; the update may still run
-                    reg_fence(s);
-                    exp_tile(s, rs0, rs1, t + 1, nk, q, c);
-                    wg_wait<0>();
-                    reg_fence(o);
-                    reg_fence(ph);
-                    reg_fence(pl);
-                    if (lane == 0) mbar_arrive(empty_bar + 8 * cur);
-                    split_tile(s, ph, pl);
-                }
-                reg_fence(ph);
-                reg_fence(pl);
-                reg_fence(o);
-                wg_fence();
-                issue_update(o, ph, pl, x_smem + stage * TILE_BYTES);
-                wg_commit();
-                wg_wait<0>();
-                reg_fence(o);
-                if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
-                if (++stage == STAGES) { stage = 0; phase ^= 1; }
-
+                float rs0, rs1;
+                segment_tiles(o, rs0, rs1, my_m, x_smem, full_bar, empty_bar,
+                              stage, phase, sg.t0, sg.t1, nk, q, c, lane);
                 if (sg.contrib == 1) {   // then this is the only segment
-                    if (EXIT) {
-                        normalize_rows(o, rs0, rs1);
-                        const bool leave = decide<MTILE>(
-                            o, qrows, prev, ex.red, iters, sg.b, true, g, k,
-                            it, iterations, row0 + r, nq, q, wg, tid, tol);
-                        (k ? done1 : done0) = leave;
-                        store_rows(o, last || leave ? TO_OUT : TO_SMEM, my_m,
-                                   spill, out, row0, nq, r, q, wg, tid);
-                    } else {
-                        finish_rows(o, rs0, rs1, last ? TO_OUT : TO_SMEM,
-                                    my_m, spill, out, row0, nq, r, q, wg,
-                                    tid);
-                    }
+                    finish_rows(o, rs0, rs1, last ? TO_OUT : TO_SMEM, my_m,
+                                spill, out, row0, nq, r, q, wg, tid);
                     continue;
                 }
                 // publish this block's partial of the row block
@@ -753,8 +796,7 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
 #pragma unroll 1
             for (int k = nseg - 1; k >= 0; --k) {
                 const Segment sg = k ? seg1 : seg0;
-                if (sg.contrib == 1 || (EXIT && (k ? done1 : done0)))
-                    continue;
+                if (sg.contrib == 1) continue;
                 if (threadIdx.x == 0)
                     wait_count(counters + sg.b, (it + 1) * sg.contrib);
                 consumers_barrier();
@@ -776,73 +818,14 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                     rs1 += __ldcg(part + part_rs + 128);
                 }
                 const int row0 = (sg.b * CONSUMERS + wg) * MTILE;
-                bool leave = false;
                 normalize_rows(o, rs0, rs1);
-                if (EXIT) {
-                    leave = decide<MTILE>(o, qrows, prev, ex.red, iters, sg.b,
-                                          sg.slot == 0, g, k, it, iterations,
-                                          row0 + r, nq, q, wg, tid, tol);
-                    (k ? done1 : done0) = leave;
-                }
-                const Dest dest = last || leave
-                                ? (sg.slot == 0 ? TO_OUT : NOWHERE)
-                                : (k == 1 ? TO_SPILL : TO_SMEM);
+                const Dest dest = last ? (sg.slot == 0 ? TO_OUT : NOWHERE)
+                                       : (k == 1 ? TO_SPILL : TO_SMEM);
                 store_rows(o, dest, my_m, spill, out, row0, nq, r, q, wg,
                            tid);
             }
-            if (EXIT) {
-                publish_decisions(ex, done0, done1);
-                if (done0 && (nseg == 1 || done1)) break;
-            }
         }
     }
-}
-
-// One launch of the EXIT or the fixed-count kernel (see the entry points).
-template <bool EXIT>
-int launch(const void* q, const void* xt, void* out, const void* inv2b2,
-           void* ws, void* counters, int nq, int nk, int iterations,
-           int grid, int slots, void* prev, void* iters, float tol,
-           void* stream) {
-    const int n_tiles = (nk + TILE - 1) / TILE;
-    const int n_blocks = (nq + ROWS - 1) / ROWS;
-    if (nq <= 0 || nk <= 0 || iterations < 1 || grid < n_blocks
-        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = SMEM_BYTES + (EXIT ? EXIT_SMEM_EXTRA : 0);
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tf32_kernel<EXIT>);
-    if (err != cudaSuccess) return (int)err;
-    // setmaxnreg can only hand the consumers what the launch allocated
-    if (attr.numRegs < REGS_AT_LAUNCH)
-        return (int)cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(ms_tf32_kernel<EXIT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const float* q_ = static_cast<const float*>(q);
-    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
-    float* out_ = static_cast<float*>(out);
-    const float* inv2b2_ = static_cast<const float*>(inv2b2);
-    float* ws_ = static_cast<float*>(ws);
-    unsigned* counters_ = static_cast<unsigned*>(counters);
-    float* prev_ = static_cast<float*>(prev);
-    int* iters_ = static_cast<int*>(iters);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (grid == n_blocks) {
-        ms_tf32_kernel<EXIT><<<grid, THREADS, smem, s>>>(
-            q_, xt_, out_, inv2b2_, ws_, counters_, nq, nk, n_tiles, n_blocks,
-            iterations, slots, prev_, iters_, tol);
-    } else {
-        void* args[] = {&q_, &xt_, &out_, &inv2b2_, &ws_, &counters_,
-                        (void*)&nq, (void*)&nk, (void*)&n_tiles,
-                        (void*)&n_blocks, &iterations, &slots, &prev_, &iters_,
-                        &tol};
-        err = cudaLaunchCooperativeKernel((const void*)ms_tf32_kernel<EXIT>,
-                                          grid, THREADS, args, smem, s);
-        if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -864,23 +847,57 @@ extern "C" int ms_iterations_tf32(const void* q, const void* xt, void* out,
                                   void* counters, int nq, int nk,
                                   int iterations, int grid, int slots,
                                   void* stream) {
-    return launch<false>(q, xt, out, inv2b2, ws, counters, nq, nk,
-                         iterations, grid, slots, nullptr, nullptr, 0.f,
-                         stream);
+    const int n_tiles = (nk + TILE - 1) / TILE;
+    const int n_blocks = (nq + ROWS - 1) / ROWS;
+    if (nq <= 0 || nk <= 0 || iterations < 1 || grid < n_blocks
+        || (long long)grid > (long long)n_blocks * n_tiles || slots < 1)
+        return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, ms_tf32_kernel);
+    if (err != cudaSuccess) return (int)err;
+    // setmaxnreg can only hand the consumers what the launch allocated
+    if (attr.numRegs < REGS_AT_LAUNCH)
+        return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(ms_tf32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const float* q_ = static_cast<const float*>(q);
+    const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
+    float* out_ = static_cast<float*>(out);
+    const float* inv2b2_ = static_cast<const float*>(inv2b2);
+    float* ws_ = static_cast<float*>(ws);
+    unsigned* counters_ = static_cast<unsigned*>(counters);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (grid == n_blocks) {
+        ms_tf32_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+            q_, xt_, out_, inv2b2_, ws_, counters_, nq, nk, n_tiles, n_blocks,
+            iterations, slots);
+    } else {
+        void* args[] = {&q_, &xt_, &out_, &inv2b2_, &ws_, &counters_,
+                        (void*)&nq, (void*)&nk, (void*)&n_tiles,
+                        (void*)&n_blocks, &iterations, &slots};
+        err = cudaLaunchCooperativeKernel((const void*)ms_tf32_kernel, grid,
+                                          THREADS, args, SMEM_BYTES, s);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
-// K1 exit, f32 mode (tol > 0; queries = keys): as ms_iterations_tf32, and
-// each 128-row block stops once max |new m - m| over its rows < nq is <=
-// tol. prev: grid x 2 x 128 x 128 f32 of workspace (each grid block's
-// previous m of its up to two row blocks); iters: ceil(nq / 128) int32,
-// the iterations each row block ran.
+// K1 exit, f32 mode (tol > 0; queries = keys = q, n rows): as
+// ms_iterations_tf32, and each 128-row block stops once max |new m - m|
+// over its rows < n is <= tol (ms_exit.cuh). part: 2 x grid x PART_FLOATS
+// f32 (two partials per grid block: its run's first and last segments);
+// mstate: ceil(n / 128) x 128 x 128 f32 (each row block's m); iters:
+// ceil(n / 128) int32, zero, receiving the iterations each row block ran;
+// counters: 1 + 2 x grid u32, zero (the grid barrier, a flag per partial).
+// grid: at most one block per SM and per EXIT_MIN_RUN key tiles of the row
+// blocks, a cooperative launch.
 extern "C" int ms_iterations_tf32_exit(const void* q, const void* xt,
                                        void* out, const void* inv2b2,
-                                       void* ws, void* prev, void* iters,
-                                       void* counters, int nq, int nk,
-                                       int iterations, int grid, int slots,
-                                       float tol, void* stream) {
-    if (!(tol > 0.f)) return (int)cudaErrorInvalidValue;
-    return launch<true>(q, xt, out, inv2b2, ws, counters, nq, nk, iterations,
-                        grid, slots, prev, iters, tol, stream);
+                                       void* part, void* mstate, void* iters,
+                                       void* counters, int n, int iterations,
+                                       int grid, float tol, void* stream) {
+    return exit_launch(xt, q, out, inv2b2, part, mstate, iters, counters, n,
+                       (n + TILE - 1) / TILE, iterations, grid, tol, stream);
 }

@@ -7,8 +7,8 @@ CUDA C++ source for sm_90a under `csrc/`:
                           (wgmma in 3xTF32; the library's default mode)
   K1tc ms_iterations_tc.cu <- mean_shift_iterations_pallas, bf16_dots
                           (wgmma; the mode the inference bench runs)
-  K1_exit, K1tc_exit      <- the same with tol > 0 (early_exit=True): each
-                          kernel's exit instantiation
+  K1_exit, K1tc_exit      <- the same with tol > 0 (early_exit=True):
+                          ms_exit.cuh's kernel on each source's pipeline
   K2 auction_assign.cu  <- auction_assign_pallas with solve_lap's benefit
                           and completion around it (lap_assign: cost ->
                           permutation, one launch for B matrices)
@@ -64,9 +64,9 @@ ENTRIES = {
     "K1tc": ("K1tc", "ms_iterations_tc",
              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "K1_exit": ("K1", "ms_iterations_tf32_exit",
-                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "K1tc_exit": ("K1tc", "ms_iterations_tc_exit",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "K2": ("K2", "lap_assign",
            [_P, _P, _I, _I, _F, _I, _F, _I, _F, _F, _F, _P]),
     "K2_benefit": ("K2", "auction_assign",
@@ -259,8 +259,19 @@ MS_TF32_TILE = 16     # key rows of one tf32 tile (32 KB: X and X^T, hi, lo)
 _MS_TILE_ORDER: dict[tuple, torch.Tensor] = {}  # (layout, device) -> index
 MS_PART_FLOATS = 2 * (MS_TILE * MS_WIDTH + 2 * 128)  # one block's partial
 MS_SPILL_FLOATS = 2 * MS_TILE * MS_WIDTH   # one block's m, spilled (tf32)
-# the exit kernels' copy of the previous m, per (grid block, row block)
-MS_PREV_FLOATS = MS_BLOCK_ROWS * MS_WIDTH
+MS_M_FLOATS = MS_BLOCK_ROWS * MS_WIDTH     # one row block's m (exit kernels)
+# The exit kernels' cap on a block's run, in key tiles of the mode's size:
+# EXIT_MIN_RUN of ms_iterations_tc.cu and ms_iterations_tf32.cu, mirrored
+# for ms_exit_plan. A run of R tiles of a row block shared by about n_tiles
+# / R blocks costs R tiles of work and, in its slot-0 block, one partial
+# read from L2 per sharer, so R near sqrt(n_tiles x partial / tile) is
+# best: about 8 bf16 tiles and 16 tf32 ones at N = 10,000 (a tile about
+# 1.0 / 1.6 us, a partial 0.5 us, estimates; the sweep that chose them is
+# in PERF.md §6).
+MS_EXIT_MIN_RUN = 8
+MS_TF32_EXIT_MIN_RUN = 16
+# the exit kernels keep their live set as bits in 448 words of shared memory
+MS_EXIT_MAX_ROWS = 448 * 32 * MS_BLOCK_ROWS
 
 
 @functools.lru_cache(maxsize=None)
@@ -290,6 +301,62 @@ def ms_plan(n: int, sms: int, tile: int = MS_TILE,
     slots = max(owner(b * tiles + tiles - 1) - owner(b * tiles) + 1
                 for b in range(blocks))
     return grid, slots
+
+
+def ms_exit_active(live: int, n_tiles: int, grid: int,
+                   tile: int = MS_TILE) -> int:
+    """The grid blocks that work an iteration of a K1 exit kernel with
+    `live` row blocks still iterating: min(grid, max(1, live x n_tiles //
+    the run cap)), 0 once none is left; the cap is MS_EXIT_MIN_RUN bf16
+    tiles, or MS_TF32_EXIT_MIN_RUN tf32 ones. It never grows as row blocks
+    leave, so a block past it has no more work."""
+    if live == 0:
+        return 0
+    cap = MS_EXIT_MIN_RUN if tile == MS_TILE else MS_TF32_EXIT_MIN_RUN
+    return min(grid, max(1, live * n_tiles // cap))
+
+
+def ms_exit_plan(live_blocks, n_tiles: int, grid: int,
+                 tile: int = MS_TILE) -> list:
+    """One iteration's work split of a K1 exit kernel, as ms_exit.cuh
+    computes it, over the row blocks still iterating (`live_blocks`, in
+    ascending order): their len x n_tiles (row block, key tile) units in
+    order, grid block g of the `ms_exit_active` taking units [floor(g U /
+    active), floor((g + 1) U / active)). -> per working block, its
+    segments in order: (row block, t0, t1, first, last), key tiles [t0,
+    t1) of the row block, which blocks first..last share. Only a run's
+    first and last segments can be shared; each sharer publishes its
+    partial of them, and block `first` (slot 0) adds them all and
+    decides."""
+    live = list(live_blocks)
+    units = len(live) * n_tiles
+    active = ms_exit_active(len(live), n_tiles, grid, tile)
+
+    def owner(u):   # the largest g with floor(g U / active) <= u
+        return ((u + 1) * active - 1) // units
+
+    plan = []
+    for g in range(active):
+        u0, u1 = g * units // active, (g + 1) * units // active
+        c0, c1 = u0 // n_tiles, (u1 - 1) // n_tiles
+        plan.append([(live[c], u0 - c * n_tiles if c == c0 else 0,
+                      u1 - c * n_tiles if c == c1 else n_tiles,
+                      owner(c * n_tiles), owner(c * n_tiles + n_tiles - 1))
+                     for c in range(c0, c1 + 1)])
+    return plan
+
+
+def ms_exit_workspace(n: int, grid: int) -> dict:
+    """The f32 / int32 elements of each buffer of a K1 exit launch over
+    `grid` blocks at N rows, whatever the iterations and the live sets:
+    two partials a grid block, of its run's first and last segments
+    ("part"), one m a row block ("mstate"), the grid barrier and a flag a
+    partial ("counters", zeroed), and the iterations of each row block
+    ("iters", zeroed)."""
+    blocks = -(-n // MS_BLOCK_ROWS)
+    return {"part": 2 * grid * MS_PART_FLOATS,
+            "mstate": blocks * MS_M_FLOATS, "counters": 1 + 2 * grid,
+            "iters": blocks}
 
 
 def ms_tiles_bf16(X: torch.Tensor) -> torch.Tensor:
@@ -385,10 +452,11 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
     """K1. X: [N, D] f32 unit rows, D <= 128 -> [N, D]. One launch runs all
     iterations on the tensor cores: bf16_dots on ms_iterations_tc.cu, f32
     on ms_iterations_tf32.cu (3xTF32), each on ms_plan's grid. tol > 0
-    launches each kernel's early exit (K1tc_exit, K1_exit): a 128-row block
-    stops once an iteration moves none of its rows by more than tol (on the
-    CPU, the plain version with exit_rows = MS_BLOCK_ROWS). No iteration
-    returns a copy of X, as the plain version does, and launches nothing."""
+    launches each source's early exit (K1tc_exit, K1_exit) on every SM: a
+    128-row block stops once an iteration moves none of its rows by more
+    than tol (on the CPU, the plain version with exit_rows =
+    MS_BLOCK_ROWS). No iteration returns a copy of X, as the plain version
+    does, and launches nothing."""
     if not _on_cuda("mean_shift_iterations", X, scalars=(bandwidth,)):
         return mean_shift_iterations_plain(X, bandwidth, iterations,
                                            bf16_dots, tol, MS_BLOCK_ROWS)
@@ -401,12 +469,14 @@ def mean_shift_iterations(X: torch.Tensor, bandwidth, iterations: int,
         return X.clone()
     inv2b2 = _inv2b2(bandwidth, X.device)
     sms = _sm_count(X.device)
+    if tol > 0.0:
+        return _ms_exit(X, inv2b2, int(iterations), sms, tol,
+                        bf16_dots)[:, :d]
     if bf16_dots:
         return _ms_iterations_tc(X, inv2b2, int(iterations),
-                                 ms_plan(n, sms)[0], tol)[:, :d]
+                                 ms_plan(n, sms)[0])[:, :d]
     return _ms_iterations_tf32(X, X, inv2b2, int(iterations),
-                               ms_plan(n, sms, MS_TF32_TILE)[0],
-                               tol=tol)[:, :d]
+                               ms_plan(n, sms, MS_TF32_TILE)[0])[:, :d]
 
 
 def _pad_width(x: torch.Tensor) -> torch.Tensor:
@@ -417,13 +487,10 @@ def _pad_width(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ms_iterations_tc(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
-                      grid: int, tol: float = 0.0,
-                      iters: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the tensor-core K1 (K1tc, or K1tc_exit for tol > 0) on
-    CUDA X [N, D <= 128] f32 over `grid` blocks (ms_plan's, or ceil(N /
-    128) for no exchange) -> [N, 128] f32 (D zero-padded). For tol > 0,
-    `iters` (int32 [ceil(N / 128)], if given) receives the iterations each
-    128-row block ran."""
+                      grid: int) -> torch.Tensor:
+    """One launch of the tensor-core K1 (K1tc) on CUDA X [N, D <= 128] f32
+    over `grid` blocks (ms_plan's, or ceil(N / 128) for no exchange) ->
+    [N, 128] f32 (D zero-padded)."""
     n = X.shape[0]
     blocks = -(-n // MS_BLOCK_ROWS)
     slots = 1 if grid == blocks else ms_plan(n, grid)[1]
@@ -431,47 +498,68 @@ def _ms_iterations_tc(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
     ws = torch.empty((2 * blocks * slots * MS_PART_FLOATS if grid > blocks
                       else 1,), dtype=torch.float32, device=X.device)
     counters = torch.zeros((blocks,), dtype=torch.int32, device=X.device)
-    if tol > 0.0:
-        prev = torch.empty((grid * 2 * MS_PREV_FLOATS,), dtype=torch.float32,
-                           device=X.device)
-        iters = _iters_out(iters, blocks, X.device)
-        x32 = _pad_width(X)
-        _launch("K1tc_exit", ms_tiles_bf16(X).data_ptr(), x32.data_ptr(),
-                out.data_ptr(), inv2b2.data_ptr(), ws.data_ptr(),
-                prev.data_ptr(), iters.data_ptr(), counters.data_ptr(), n,
-                iterations, grid, slots, float(tol))
-        return out
     _launch("K1tc", ms_tiles_bf16(X).data_ptr(), out.data_ptr(),
             inv2b2.data_ptr(), ws.data_ptr(), counters.data_ptr(), n,
             iterations, grid, slots)
     return out
 
 
+def _ms_exit(X: torch.Tensor, inv2b2: torch.Tensor, iterations: int,
+             grid: int, tol: float, bf16_dots: bool,
+             iters: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of a K1 exit kernel (K1tc_exit for bf16_dots, else
+    K1_exit) on CUDA X [N, D <= 128] f32 over at most `grid` blocks (at
+    most one per SM; ms_exit_active's of the first iteration) -> [N, 128]
+    f32 (D zero-padded). `iters` (int32 [ceil(N / 128)], if given) receives
+    the iterations each 128-row block ran."""
+    n = X.shape[0]
+    if n > MS_EXIT_MAX_ROWS:
+        raise ValueError(f"mean_shift_iterations: the early exit takes at "
+                         f"most {MS_EXIT_MAX_ROWS} rows, got {n}")
+    blocks = -(-n // MS_BLOCK_ROWS)
+    tile = MS_TILE if bf16_dots else MS_TF32_TILE
+    tiles = -(-n // tile)
+    grid = ms_exit_active(blocks, tiles, min(grid, _sm_count(X.device)), tile)
+    ws = ms_exit_workspace(n, grid)
+    dev = X.device
+    part = torch.empty((ws["part"],), dtype=torch.float32, device=dev)
+    mstate = torch.empty((ws["mstate"],), dtype=torch.float32, device=dev)
+    counters = torch.zeros((ws["counters"],), dtype=torch.int32, device=dev)
+    iters = _iters_out(iters, blocks, dev)
+    out = torch.empty((n, MS_WIDTH), dtype=torch.float32, device=dev)
+    x32 = _pad_width(X)
+    operands = ((ms_tiles_bf16(X), x32) if bf16_dots
+                else (x32, ms_tiles_tf32(X)))
+    _launch("K1tc_exit" if bf16_dots else "K1_exit",
+            operands[0].data_ptr(), operands[1].data_ptr(), out.data_ptr(),
+            inv2b2.data_ptr(), part.data_ptr(), mstate.data_ptr(),
+            iters.data_ptr(), counters.data_ptr(), n, iterations, grid,
+            float(tol))
+    return out
+
+
 def _iters_out(iters: Optional[torch.Tensor], blocks: int,
                device: torch.device) -> torch.Tensor:
-    """The exit kernels' output of iterations per 128-row block: `iters`,
-    checked, or a new one."""
+    """The exit kernels' output of iterations per 128-row block, zeroed (0
+    marks a row block still iterating): `iters`, checked, or a new one."""
     if iters is None:
-        return torch.empty((blocks,), dtype=torch.int32, device=device)
+        return torch.zeros((blocks,), dtype=torch.int32, device=device)
     _check("mean_shift_iterations", iters, torch.int32, 1)
     if iters.shape[0] != blocks or iters.device != device:
         raise ValueError(f"mean_shift_iterations: iters must hold {blocks} "
                          f"int32 on {device}, got {tuple(iters.shape)} on "
                          f"{iters.device}")
-    return iters
+    return iters.zero_()
 
 
 def _ms_iterations_tf32(m: torch.Tensor, x: torch.Tensor,
                         inv2b2: torch.Tensor, iterations: int, grid: int,
-                        name: str = "K1", tol: float = 0.0,
-                        iters: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        name: str = "K1") -> torch.Tensor:
     """One launch of the tf32 kernel (counted as `name`: K1, or K5 for one
-    step of separate queries; K1_exit for tol > 0, queries = keys):
-    `iterations` steps of the queries m [Nq, D <= 128] against the keys x
-    [Nk, D], CUDA f32, over `grid` blocks (ms_plan's with MS_TF32_TILE, or
-    ceil(Nq / 128) for no exchange) -> [Nq, 128] f32 (D zero-padded). For
-    tol > 0, `iters` (int32 [ceil(Nq / 128)], if given) receives the
-    iterations each 128-row block ran."""
+    step of separate queries): `iterations` steps of the queries m [Nq, D
+    <= 128] against the keys x [Nk, D], CUDA f32, over `grid` blocks
+    (ms_plan's with MS_TF32_TILE, or ceil(Nq / 128) for no exchange) ->
+    [Nq, 128] f32 (D zero-padded)."""
     nq, nk = m.shape[0], x.shape[0]
     blocks = -(-nq // MS_BLOCK_ROWS)
     slots = 1 if grid == blocks else ms_plan(nq, grid, MS_TF32_TILE, nk)[1]
@@ -481,17 +569,7 @@ def _ms_iterations_tf32(m: torch.Tensor, x: torch.Tensor,
                       + grid * MS_SPILL_FLOATS if grid > blocks else 1,),
                      dtype=torch.float32, device=m.device)
     counters = torch.zeros((blocks,), dtype=torch.int32, device=m.device)
-    tiles = ms_tiles_tf32(x)
-    if tol > 0.0:
-        prev = torch.empty((grid * 2 * MS_PREV_FLOATS,), dtype=torch.float32,
-                           device=m.device)
-        iters = _iters_out(iters, blocks, m.device)
-        _launch("K1_exit", qp.data_ptr(), tiles.data_ptr(), out.data_ptr(),
-                inv2b2.data_ptr(), ws.data_ptr(), prev.data_ptr(),
-                iters.data_ptr(), counters.data_ptr(), nq, nk, iterations,
-                grid, slots, float(tol))
-        return out
-    _launch(name, qp.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+    _launch(name, qp.data_ptr(), ms_tiles_tf32(x).data_ptr(), out.data_ptr(),
             inv2b2.data_ptr(), ws.data_ptr(), counters.data_ptr(), nq, nk,
             iterations, grid, slots)
     return out
