@@ -14,15 +14,24 @@ from typing import Dict
 
 
 def setup_logging(log_dir: str, name: str) -> logging.Logger:
-    """The package logger, to stdout and {log_dir}/logs/{name}.log."""
+    """The package logger, to stdout and {log_dir}/logs/{name}.log. A
+    later call with another log_dir or name moves the file handler there
+    (the previous file is closed); stdout keeps one handler."""
     os.makedirs(f"{log_dir}/logs", exist_ok=True)
+    path = os.path.abspath(f"{log_dir}/logs/{name}.log")
     logger = logging.getLogger("parsenet_tpu_torch")
     logger.setLevel(logging.INFO)
     logger.propagate = False
-    if not logger.handlers:
-        fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-        for handler in (logging.StreamHandler(),
-                        logging.FileHandler(f"{log_dir}/logs/{name}.log")):
+    for h in list(logger.handlers):
+        if isinstance(h, logging.FileHandler) and h.baseFilename != path:
+            logger.removeHandler(h)
+            h.close()
+    kinds = {isinstance(h, logging.FileHandler) for h in logger.handlers}
+    fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
+    for is_file, make in ((False, logging.StreamHandler),
+                          (True, lambda: logging.FileHandler(path))):
+        if is_file not in kinds:
+            handler = make()
             handler.setFormatter(fmt)
             logger.addHandler(handler)
     return logger

@@ -1,10 +1,14 @@
 """Tracing and profiling.
 
 Counterpart of parsenet_tpu/core/profiling.py:
-* `trace`: a named region (torch.profiler.record_function) that shows in
-  profiler timelines;
-* `capture_trace`: a torch.profiler capture of the enclosed region, CPU
-  and CUDA activity, written to log_dir as a Chrome trace;
+* `trace`: the program's span, a torch.profiler.record_function range
+  while a profiler session records and a shared no-op context otherwise
+  (one flag check). Spans share the profiler's clock with the device's
+  operations and nest: `entry.<name>` around a request or an optimizer
+  step of an entry point, `sync.<site>` around each host synchronisation
+  the entry makes, `ms.<part>` around the mean-shift guard's parts, and
+  a few sub-stage spans where a stage's host work is long. Run any entry
+  under torch.profiler.profile to see them;
 * `StepTimer`: wall-clock step statistics, the step's device synchronised
   before the clock is read;
 * `StageTimer`: device time per stage from CUDA events, used by the
@@ -14,33 +18,23 @@ Counterpart of parsenet_tpu/core/profiling.py:
 from __future__ import annotations
 
 import contextlib
-import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Dict, Optional
 
 import numpy as np
 import torch
 
 
-@contextlib.contextmanager
-def trace(name: str) -> Iterator[None]:
-    """Named region annotation visible in profiler timelines."""
-    with torch.profiler.record_function(name):
-        yield
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def capture_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """Profile the enclosed region (CPU, and CUDA where a card is present)
-    and write {log_dir}/trace_<pid>.json, a Chrome trace."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir,
-                                          f"trace_{os.getpid()}.json"))
+def trace(name: str) -> ContextManager:
+    """A span named `name`: a record_function range while a profiler
+    session is active, else the shared no-op context, which records
+    nothing and allocates nothing."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StepTimer:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core.guards import EPS, entry_device
-from ..core.profiling import StageTimer
+from ..core.profiling import StageTimer, trace
 from ..ops.chamfer import min_sqdist
 from ..fitting.spline_apply import CLOSED_PTS, OPEN_PTS
 from ..ops.mean_shift import guard_mean_shift
@@ -72,8 +72,13 @@ _NO_TIMER = StageTimer(False)
 
 
 def _as_tensor(a, device, dtype=None) -> torch.Tensor:
+    """`a` on `device`; a copy from the host to the card waits for the
+    card's queue (span sync.h2d_input)."""
     if not torch.is_tensor(a):
         a = torch.from_numpy(np.array(a))
+    if a.device.type == "cpu" and torch.device(device).type == "cuda":
+        with trace("sync.h2d_input"):
+            return a.to(device=device, dtype=dtype)
     return a.to(device=device, dtype=dtype)
 
 
@@ -116,34 +121,36 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
     skip_siou (BENCH_ABLATE=siou): clustering runs, the SIOU matching does
     not, and seg_iou / prim_iou are 1.
     """
-    dev = entry_device(device)
-    pts = _as_tensor(points, dev, torch.float32)
-    nrm = _as_tensor(normals, dev, torch.float32)
-    gt_labels = _as_tensor(gt_labels, dev, torch.int64)
-    gt_prim = _as_tensor(gt_prim, dev, torch.int64)
-    with timer("dgcnn"):
-        emb, prim_logp = model(_network_input(model, pts, nrm))
-        pred_prim = torch.argmax(prim_logp, dim=-1)
-        embn = emb / (torch.linalg.norm(emb, dim=-1, keepdim=True) + 1e-12)
-    labels, ks = [], []
-    for b in range(pts.shape[0]):
-        with timer("mean_shift"):
-            ms = guard_mean_shift(
-                embn[b], quantile, num_samples=ms_num_samples,
-                iterations=iterations, bf16_dots=ms_bf16,
-                subset=None if subsets is None else subsets[b],
-                generator=generator)
-        labels.append(ms.labels)
-        ks.append(ms.num_clusters)
-    labels = torch.stack(labels)
-    if skip_siou:
-        one = torch.ones(pts.shape[0], device=dev)
-        return SegmentationPrediction(labels, pred_prim, emb, one, one, ks)
-    with timer("siou"):   # draws nothing: one LAP launch for the batch
-        seg_iou, prim_iou = siou_matched_segments(
-            gt_labels, labels, pred_prim, gt_prim, to_one_hot(labels))
-    return SegmentationPrediction(labels, pred_prim, emb, seg_iou, prim_iou,
-                                  ks)
+    with trace("entry.predict_segmentation"):
+        dev = entry_device(device)
+        pts = _as_tensor(points, dev, torch.float32)
+        nrm = _as_tensor(normals, dev, torch.float32)
+        gt_labels = _as_tensor(gt_labels, dev, torch.int64)
+        gt_prim = _as_tensor(gt_prim, dev, torch.int64)
+        with timer("dgcnn"):
+            emb, prim_logp = model(_network_input(model, pts, nrm))
+            pred_prim = torch.argmax(prim_logp, dim=-1)
+            embn = emb / (torch.linalg.norm(emb, dim=-1, keepdim=True)
+                          + 1e-12)
+        labels, ks = [], []
+        for b in range(pts.shape[0]):
+            with timer("mean_shift"):
+                ms = guard_mean_shift(
+                    embn[b], quantile, num_samples=ms_num_samples,
+                    iterations=iterations, bf16_dots=ms_bf16,
+                    subset=None if subsets is None else subsets[b],
+                    generator=generator)
+            labels.append(ms.labels)
+            ks.append(ms.num_clusters)
+        labels = torch.stack(labels)
+        if skip_siou:
+            one = torch.ones(pts.shape[0], device=dev)
+            return SegmentationPrediction(labels, pred_prim, emb, one, one, ks)
+        with timer("siou"):   # draws nothing: one LAP launch for the batch
+            seg_iou, prim_iou = siou_matched_segments(
+                gt_labels, labels, pred_prim, gt_prim, to_one_hot(labels))
+        return SegmentationPrediction(labels, pred_prim, emb, seg_iou,
+                                      prim_iou, ks)
 
 
 class Reconstruction(NamedTuple):
@@ -172,26 +179,31 @@ def _fit_and_sample(points, normals, pred_labels, pred_prim):
     """Per-segment fits and surface grids of one shape. Returns (params,
     seg_type [K] in the eval taxonomy, counts [K], geom_type [K], surf
     [K, G^2, 3], area [K, G^2])."""
-    oh = to_one_hot(pred_labels)                          # [N, K]
-    counts = torch.sum(oh, dim=0)
-    prim_oh = to_one_hot(remap_primitive_labels(pred_prim), 10)
-    seg_type = primitive_type_per_segment(prim_oh, oh)
-    geom_type = geom_type_from_label(seg_type)
-    seg_mask = oh.T                                       # [K, N]
-    params = fit_all_primitives_shared_points(points, normals, seg_mask + EPS)
-    t = geom_type[:, None, None]
-    surf = sample_plane(params.plane.normal, params.plane.offset, points,
-                        seg_mask, SURF_GRID)
-    surf = torch.where(t == GEOM_SPHERE, sample_sphere(
-        params.sphere.center, params.sphere.radius, points, seg_mask,
-        SURF_GRID), surf)
-    surf = torch.where(t == GEOM_CYLINDER, sample_cylinder(
-        params.cylinder.axis, params.cylinder.center, params.cylinder.radius,
-        points, seg_mask, SURF_GRID), surf)
-    surf = torch.where(t == GEOM_CONE, sample_cone(
-        params.cone.apex, params.cone.axis, params.cone.theta, points,
-        seg_mask, SURF_GRID), surf)
-    return params, seg_type, counts, geom_type, surf, _area_weights(surf)
+    with trace("fits.segments"):
+        oh = to_one_hot(pred_labels)                      # [N, K]
+        counts = torch.sum(oh, dim=0)
+        prim_oh = to_one_hot(remap_primitive_labels(pred_prim), 10)
+        seg_type = primitive_type_per_segment(prim_oh, oh)
+        geom_type = geom_type_from_label(seg_type)
+        seg_mask = oh.T                                   # [K, N]
+    with trace("fits.solve"):
+        params = fit_all_primitives_shared_points(points, normals,
+                                                  seg_mask + EPS)
+    with trace("fits.sample"):
+        t = geom_type[:, None, None]
+        surf = sample_plane(params.plane.normal, params.plane.offset, points,
+                            seg_mask, SURF_GRID)
+        surf = torch.where(t == GEOM_SPHERE, sample_sphere(
+            params.sphere.center, params.sphere.radius, points, seg_mask,
+            SURF_GRID), surf)
+        surf = torch.where(t == GEOM_CYLINDER, sample_cylinder(
+            params.cylinder.axis, params.cylinder.center,
+            params.cylinder.radius, points, seg_mask, SURF_GRID), surf)
+        surf = torch.where(t == GEOM_CONE, sample_cone(
+            params.cone.apex, params.cone.axis, params.cone.theta, points,
+            seg_mask, SURF_GRID), surf)
+        area_w = _area_weights(surf)
+    return params, seg_type, counts, geom_type, surf, area_w
 
 
 def slot_segments(seg_type, counts, n_slots: int):
@@ -277,13 +289,16 @@ def _slot_distances(points, pred_labels, slot_seg, slot_valid, slot_surf):
     d [N])."""
     n, s = points.shape[0], slot_seg.shape[0]
     lab = torch.clamp(pred_labels, max=K_MAX - 1)
-    d_slot = min_sqdist(points.expand(s, n, 3), slot_surf)        # [S, N]
-    slot_of_seg = torch.zeros(K_MAX, dtype=torch.int64, device=points.device)
-    slot_of_seg[slot_seg] = torch.arange(s, device=points.device)
-    used = torch.zeros(K_MAX, dtype=torch.bool, device=points.device)
-    used[slot_seg] = slot_valid
-    return used[lab], d_slot[slot_of_seg[lab],
-                             torch.arange(n, device=points.device)]
+    with trace("residual.slot_distances"):
+        d_slot = min_sqdist(points.expand(s, n, 3), slot_surf)    # [S, N]
+    with trace("residual.slot_select"):
+        slot_of_seg = torch.zeros(K_MAX, dtype=torch.int64,
+                                  device=points.device)
+        slot_of_seg[slot_seg] = torch.arange(s, device=points.device)
+        used = torch.zeros(K_MAX, dtype=torch.bool, device=points.device)
+        used[slot_seg] = slot_valid
+        return used[lab], d_slot[slot_of_seg[lab],
+                                 torch.arange(n, device=points.device)]
 
 
 def _residual(points, pred_labels, params: AllPrimParams, geom_type, valid,
@@ -409,7 +424,7 @@ def reconstruct_shape(points, normals, pred_labels, pred_prim,
         slot_seg, slot_valid, surf_s = _spline_slots(
             pts, pred_labels, seg_type, counts, spline_fit, slot_uniforms,
             eval_preprocess, timer)
-        with timer("spline_decode"):
+        with timer("spline_decode"), trace("decode.place"):
             surf, area_w = _place_slots(surf, area_w, slot_seg, slot_valid,
                                         surf_s)
         if not skip_residual:
@@ -465,42 +480,43 @@ def batch_metrics(model, points, normals, labels, prim,
     reconstructs the GT segments with the network's types (seg_iou and
     prim_iou 1, no clusters); `recon` returns zeros for the
     reconstruction's metrics."""
-    bad = set(ablate) - set(ABLATE_ARMS)
-    if bad:
-        raise ValueError(f"batch_metrics: ablate {sorted(bad)} not in "
-                         f"{ABLATE_ARMS}")
-    dev = entry_device(device)
-    pts = _as_tensor(points, dev, torch.float32)
-    nrm = _as_tensor(normals, dev, torch.float32)
-    b_n = pts.shape[0]
-    if "ms" in ablate:
-        with timer("dgcnn"):
-            emb, prim_logp = model(_network_input(model, pts, nrm))
-        one = torch.ones(b_n, device=dev)
-        pred = SegmentationPrediction(_as_tensor(labels, dev, torch.int64),
-                                      torch.argmax(prim_logp, dim=-1), emb,
-                                      one, one, [0] * b_n)
-    else:
-        pred = predict_segmentation(
-            model, pts, nrm, labels, prim, ms_bf16=ms_bf16,
-            ms_num_samples=min(5000, pts.shape[1]),
-            skip_siou="siou" in ablate, generator=generator, device=dev,
-            timer=timer)
-    out = {"seg_iou": pred.seg_iou, "prim_iou": pred.prim_iou,
-           "num_clusters": list(pred.num_clusters)}
-    if "recon" in ablate:
-        z = torch.zeros(b_n, device=dev)
-        return {**out, **{k: z for k in METRICS[:4]}}
-    skip = tuple(a for a in ablate if a in PROFILE_SKIP)
-    recs = [reconstruct_shape(pts[b], nrm[b], pred.labels[b],
-                              pred.pred_prim[b], generator=generator,
-                              spline_fit=spline_fit,
-                              eval_preprocess="preprocess" not in ablate,
-                              profile_skip=skip, device=dev, timer=timer)
-            for b in range(b_n)]
-    for k in METRICS[:4]:
-        out[k] = torch.stack([getattr(r, k) for r in recs])
-    return out
+    with trace("entry.batch_metrics"):
+        bad = set(ablate) - set(ABLATE_ARMS)
+        if bad:
+            raise ValueError(f"batch_metrics: ablate {sorted(bad)} not in "
+                             f"{ABLATE_ARMS}")
+        dev = entry_device(device)
+        pts = _as_tensor(points, dev, torch.float32)
+        nrm = _as_tensor(normals, dev, torch.float32)
+        b_n = pts.shape[0]
+        if "ms" in ablate:
+            with timer("dgcnn"):
+                emb, prim_logp = model(_network_input(model, pts, nrm))
+            one = torch.ones(b_n, device=dev)
+            pred = SegmentationPrediction(_as_tensor(labels, dev, torch.int64),
+                                          torch.argmax(prim_logp, dim=-1), emb,
+                                          one, one, [0] * b_n)
+        else:
+            pred = predict_segmentation(
+                model, pts, nrm, labels, prim, ms_bf16=ms_bf16,
+                ms_num_samples=min(5000, pts.shape[1]),
+                skip_siou="siou" in ablate, generator=generator, device=dev,
+                timer=timer)
+        out = {"seg_iou": pred.seg_iou, "prim_iou": pred.prim_iou,
+               "num_clusters": list(pred.num_clusters)}
+        if "recon" in ablate:
+            z = torch.zeros(b_n, device=dev)
+            return {**out, **{k: z for k in METRICS[:4]}}
+        skip = tuple(a for a in ablate if a in PROFILE_SKIP)
+        recs = [reconstruct_shape(pts[b], nrm[b], pred.labels[b],
+                                  pred.pred_prim[b], generator=generator,
+                                  spline_fit=spline_fit,
+                                  eval_preprocess="preprocess" not in ablate,
+                                  profile_skip=skip, device=dev, timer=timer)
+                for b in range(b_n)]
+        for k in METRICS[:4]:
+            out[k] = torch.stack([getattr(r, k) for r in recs])
+        return out
 
 
 def run_batch(model, points, normals, labels, prim,

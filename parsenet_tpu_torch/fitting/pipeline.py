@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.guards import EPS, guard_exp
-from ..core.profiling import StageTimer
+from ..core.profiling import StageTimer, trace
 from ..ops.chamfer import min_sqdist
 from ..ops.hungarian import solve_lap
 from ..ops.mean_shift import MeanShiftResult, guard_mean_shift
@@ -91,7 +91,9 @@ def gt_segment_prim_votes(gt_labels: torch.Tensor,
 
 
 def _isin(t: torch.Tensor, values) -> torch.Tensor:
-    return torch.isin(t, torch.tensor(values, device=t.device))
+    with trace("sync.isin_values"):   # values copied to the card
+        v = torch.tensor(values, device=t.device)
+    return torch.isin(t, v)
 
 
 def fitting_loss_shape(points: torch.Tensor, normals: torch.Tensor,
@@ -152,21 +154,23 @@ def fitting_loss_shape(points: torch.Tensor, normals: torch.Tensor,
                                   attempt_iterations=ms_attempt_iterations)
             centers, valid_k = cluster_centers(ms, emb)
     with timer("matching"):
-        pred_oh = to_one_hot(ms.labels)
-        if "ms" in ablate or "match" in ablate:
-            cols = torch.arange(K_MAX, device=points.device)
-        else:
-            cols = solve_lap((1.0 - relaxed_iou(pred_oh, gt_oh)).detach()
-                             ).to(torch.int64)
-        weights_raw = centers @ emb.T                           # [K, N]
-        pred_count = torch.sum(pred_oh, dim=0)
-        valid = valid_k & (pred_count > 0) & (gt_count[cols] > 0)
-        votes = gt_segment_prim_votes(gt_labels, gt_prim)       # [K, 10]
-        seg_label = torch.argmax(votes[cols], dim=1)            # [K]
-        w_norm = weights_normalize(weights_raw, ms.bandwidth, valid)
-        gt_mask = (gt_labels[None, :] == cols[:, None]).to(torch.float32)
-        p_res = points[::residual_stride]
-        gt_mask_res = gt_mask[:, ::residual_stride]
+        with trace("matching.lap"):
+            pred_oh = to_one_hot(ms.labels)
+            if "ms" in ablate or "match" in ablate:
+                cols = torch.arange(K_MAX, device=points.device)
+            else:
+                cols = solve_lap((1.0 - relaxed_iou(pred_oh, gt_oh)).detach()
+                                 ).to(torch.int64)
+        with trace("matching.weights"):
+            weights_raw = centers @ emb.T                       # [K, N]
+            pred_count = torch.sum(pred_oh, dim=0)
+            valid = valid_k & (pred_count > 0) & (gt_count[cols] > 0)
+            votes = gt_segment_prim_votes(gt_labels, gt_prim)   # [K, 10]
+            seg_label = torch.argmax(votes[cols], dim=1)        # [K]
+            w_norm = weights_normalize(weights_raw, ms.bandwidth, valid)
+            gt_mask = (gt_labels[None, :] == cols[:, None]).to(torch.float32)
+            p_res = points[::residual_stride]
+            gt_mask_res = gt_mask[:, ::residual_stride]
 
     if "fits" in ablate:
         geom_res = torch.zeros(K_MAX, device=points.device)
@@ -230,7 +234,7 @@ def fitting_loss_shape(points: torch.Tensor, normals: torch.Tensor,
         zero = torch.mean(res).detach() * 0.0
         return FittingLossOut(total, g_loss, s_loss, zero, zero,
                               ms.num_clusters)
-    with torch.no_grad(), timer("matching"):
+    with torch.no_grad(), timer("matching"), trace("matching.siou"):
         ss = siou_stride
         pp = gt_prim if pred_prim_per_point is None else pred_prim_per_point
         seg_iou, prim_iou = siou_matched_segments(

@@ -26,6 +26,7 @@ import os
 import torch
 import torch.nn as nn
 
+from ..core.profiling import trace
 from ..models.splinenet import SplineNet, load_splinenet
 from ..ops.bspline import (close_control_grid, sample_surface,
                            uniform_knot_bspline)
@@ -60,14 +61,18 @@ class SplineFit(nn.Module):
                 w=None):
         if w is None:
             w = torch.ones(pts.shape[:2], dtype=pts.dtype, device=pts.device)
-        st = standardize_points(pts, w)
-        cp = model(st.points, weights=w).reshape(
-            pts.shape[0], model.grid, model.grid, 3)
-        if closed:
-            surf = sample_surface(self.nu_c, self.nv_c, close_control_grid(cp))
-        else:
-            surf = sample_surface(self.nu, self.nv, cp)
-        return unstandardize_points(surf, st)
+        with trace("decode.standardize"):
+            st = standardize_points(pts, w)
+        with trace("decode.splinenet"):
+            cp = model(st.points, weights=w).reshape(
+                pts.shape[0], model.grid, model.grid, 3)
+        with trace("decode.surface"):
+            if closed:
+                surf = sample_surface(self.nu_c, self.nv_c,
+                                      close_control_grid(cp))
+            else:
+                surf = sample_surface(self.nu, self.nv, cp)
+            return unstandardize_points(surf, st)
 
     def batched(self, points: torch.Tensor, weights: torch.Tensor,
                 is_closed: torch.Tensor) -> torch.Tensor:

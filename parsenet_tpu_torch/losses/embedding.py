@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from ..core.profiling import trace
+
 S_MAX = 50     # max GT segments per shape
 P_SAMPLES = 30
 N_PAIRS = 25   # max_segments^2 with max_segments=5 (reference: :38,86)
@@ -48,7 +50,8 @@ def _triplet_one_shape(emb: torch.Tensor, labels: torch.Tensor,
     counts = counts.index_add(0, labels, torch.ones_like(labels,
                                                          dtype=torch.float32))
     present = counts > 0
-    u = int(torch.sum(present))
+    with trace("sync.triplet_segments"):
+        u = int(torch.sum(present))
     order = torch.argsort(labels, stable=True)
     starts = torch.cumsum(counts, 0) - counts
     present_slots = torch.argsort((~present).to(torch.int32), stable=True)
@@ -97,7 +100,8 @@ def triplet_loss(embedding: torch.Tensor, labels: torch.Tensor,
                                      u_points[b], u_pairs[b], margin)
         losses.append(loss)
         multi.append(float(m))
-    multi_f = torch.tensor(multi, dtype=torch.float32, device=emb.device)
+    with trace("sync.triplet_multi"):
+        multi_f = torch.tensor(multi, dtype=torch.float32, device=emb.device)
     total, count = torch.sum(torch.stack(losses) * multi_f), torch.sum(multi_f)
     if mesh is not None:
         total, count = total * float(mesh.world), mesh.all_sum(count)

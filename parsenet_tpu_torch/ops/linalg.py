@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.profiling import trace
+
 _GAP_EPS = 1e-4  # the smallest eigengap the backward divides by
 
 
@@ -94,4 +96,6 @@ def ridge_lstsq(A: torch.Tensor, y: torch.Tensor,
     tr = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)[..., None, None] / n
     eye = torch.eye(n, dtype=AtA.dtype, device=AtA.device)
     AtA = AtA + (lam * tr + 1e-10) * eye
-    return torch.linalg.solve(AtA, At @ y)
+    aty = At @ y
+    with trace("sync.fits_solve"):   # the card's solve checks its info
+        return torch.linalg.solve(AtA, aty)

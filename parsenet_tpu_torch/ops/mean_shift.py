@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.guards import guard_sqrt
+from ..core.profiling import trace
 from .kernels import mean_shift_iterations
 
 
@@ -110,7 +111,8 @@ def nms(shifted: torch.Tensor, X: torch.Tensor, bandwidth: torch.Tensor):
     n = X.shape[0]
     scores = shifted @ X.T                                   # [N, N]
     member_of = torch.argmax(scores, dim=0)
-    counts = torch.bincount(member_of, minlength=n).to(torch.float32)
+    with trace("sync.ms_bincount"):   # CUDA's bincount reads its range
+        counts = torch.bincount(member_of, minlength=n).to(torch.float32)
     valid = (counts > 0).to(torch.float32)
     # centers within `bandwidth` of each other compete; the one with the
     # most members wins (squared-distance scale, as the reference)
@@ -121,12 +123,14 @@ def nms(shifted: torch.Tensor, X: torch.Tensor, bandwidth: torch.Tensor):
     del nbrs
     center_mask = torch.zeros(n, dtype=torch.float32, device=X.device)
     center_mask = center_mask.scatter_reduce(0, winner, valid, reduce="amax")
-    masked = torch.where(center_mask[:, None] > 0, scores,
-                         torch.tensor(float("-inf"), device=X.device))
+    with trace("sync.ms_neg_inf"):
+        neg_inf = torch.tensor(float("-inf"), device=X.device)
+    masked = torch.where(center_mask[:, None] > 0, scores, neg_inf)
     best_center = torch.argmax(masked, dim=0)
     rank = torch.cumsum(center_mask, dim=0).to(torch.int64) - 1
     labels = rank[best_center]
-    num_clusters = int(torch.sum(center_mask).item())
+    with trace("sync.ms_clusters"):
+        num_clusters = int(torch.sum(center_mask).item())
     return center_mask, labels, num_clusters
 
 
@@ -249,26 +253,33 @@ def guard_mean_shift(X: torch.Tensor, quantile: float,
         center_mask, labels, k = nms(shifted, X_ng, bw)
         return shifted, center_mask, labels, k
 
+    # spans: ms.subset (the bandwidth statistic), ms.attempt (one a
+    # bandwidth tried: its escalated bandwidth, iterations and NMS),
+    # ms.rerun (the training re-run of the accepted bandwidth)
     with torch.no_grad():
-        d_sub = _subset_sqdist(X_ng, num_samples, subset, generator)
-        q = np.float32(quantile)
-        bw = _initial_bandwidth(d_sub, float(quantile))
-        shifted, center_mask, labels, k = attempt(bw)
+        with trace("ms.subset"):
+            d_sub = _subset_sqdist(X_ng, num_samples, subset, generator)
+            q = np.float32(quantile)
+            bw = _initial_bandwidth(d_sub, float(quantile))
+        with trace("ms.attempt"):
+            shifted, center_mask, labels, k = attempt(bw)
         i = 0
         while k > max_clusters and i < max_doublings:
             i += 1
-            q = np.float32(q * np.float32(2.0))
-            bw = _escalation_bandwidth(d_sub, q)
-            shifted, center_mask, labels, k = attempt(bw)
+            with trace("ms.attempt"):
+                q = np.float32(q * np.float32(2.0))
+                bw = _escalation_bandwidth(d_sub, q)
+                shifted, center_mask, labels, k = attempt(bw)
     if not differentiable or (att_iters == iterations
                               and not torch.is_grad_enabled()):
         return MeanShiftResult(shifted, center_mask, labels, bw, k)
-    if torch.is_grad_enabled():
-        shifted = (mean_shift_iterations_autograd(X, bw, iterations)
-                   if kernel == "gaussian" else
-                   mean_shift_iterations_epanechnikov(X, bw, iterations))
-    else:
-        shifted = _shift(X_ng, bw, iterations, kernel)
-    with torch.no_grad():
-        center_mask, labels, k = nms(shifted.detach(), X_ng, bw)
+    with trace("ms.rerun"):
+        if torch.is_grad_enabled():
+            shifted = (mean_shift_iterations_autograd(X, bw, iterations)
+                       if kernel == "gaussian" else
+                       mean_shift_iterations_epanechnikov(X, bw, iterations))
+        else:
+            shifted = _shift(X_ng, bw, iterations, kernel)
+        with torch.no_grad():
+            center_mask, labels, k = nms(shifted.detach(), X_ng, bw)
     return MeanShiftResult(shifted, center_mask, labels, bw, k)

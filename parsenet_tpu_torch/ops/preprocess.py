@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.profiling import trace
 from .knn import topk_first
 
 BUF = 2048          # packed segment buffer (>= a_max of closed splines, 1,800)
@@ -102,7 +103,8 @@ def nn_centroid_upsample(pts: torch.Tensor, m: torch.Tensor,
     buf = pts.shape[1]
     idx = torch.arange(buf, device=pts.device)[None, :]
     for _ in range(rounds):
-        act = torch.nonzero(m < a_max).flatten()
+        with trace("sync.preprocess_active"):
+            act = torch.nonzero(m < a_max).flatten()
         if act.numel() == 0:
             break
         p, ma = pts[act], m[act]
@@ -142,7 +144,11 @@ def eval_segment_points(points: torch.Tensor, member: torch.Tensor,
     set (callers take the first a_max rows per decoder). points [N, 3],
     member [S, N] bool, a_max [S] int, u_pack [S, N], u_draw [S, min(N,
     BUF)] -> [S, n_out, 3]."""
-    pts, m = pack_segment(points, member, u_pack)
-    pts, m = repack(pts, statistical_inliers_packed(pts, m))
-    pts, m = nn_centroid_upsample(pts, m, a_max)
-    return draw_fixed(pts, m, n_out, u_draw)
+    with trace("preprocess.pack"):
+        pts, m = pack_segment(points, member, u_pack)
+    with trace("preprocess.outliers"):
+        pts, m = repack(pts, statistical_inliers_packed(pts, m))
+    with trace("preprocess.upsample"):
+        pts, m = nn_centroid_upsample(pts, m, a_max)
+    with trace("preprocess.draw"):
+        return draw_fixed(pts, m, n_out, u_draw)

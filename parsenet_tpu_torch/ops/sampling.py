@@ -14,6 +14,7 @@ import math
 import torch
 
 from ..core.guards import EPS
+from ..core.profiling import trace
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -22,8 +23,10 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
 
 def _orthonormal_frame(a: torch.Tensor):
     """Two unit vectors spanning the plane normal to each unit a [K, 3]."""
-    ex = torch.tensor([1.0, 0.0, 0.0], device=a.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], device=a.device)
+    with trace("sync.frame_ex"):
+        ex = torch.tensor([1.0, 0.0, 0.0], device=a.device)
+    with trace("sync.frame_ey"):
+        ey = torch.tensor([0.0, 1.0, 0.0], device=a.device)
     h = torch.where((torch.abs(a[:, 0]) < 0.9)[:, None], ex, ey)
     b1 = _normalize(torch.linalg.cross(a, h))
     return b1, torch.linalg.cross(a, b1)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.guards import EPS
+from ..core.profiling import trace
 from .linalg import safe_eigh
 
 
@@ -48,7 +49,9 @@ def rotation_matrix_a_to_b(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     G[..., 0, 1] = -sin
     G[..., 1, 0] = sin
     G[..., 1, 1] = cos
-    Finv = torch.linalg.solve(F + 1e-8 * eye, eye.expand(F.shape))
+    f_eps = F + 1e-8 * eye
+    with trace("sync.standardize_solve"):   # the solve checks its info
+        Finv = torch.linalg.solve(f_eps, eye.expand(F.shape))
     return F @ G @ Finv
 
 

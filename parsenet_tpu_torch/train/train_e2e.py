@@ -36,7 +36,7 @@ import torch
 from ..core.checkpoint import load_npz_params, save_npz_params
 from ..core.config import Config, load_config
 from ..core.logging import setup_logging, snapshot_config
-from ..core.profiling import StageTimer
+from ..core.profiling import StageTimer, trace
 from ..fitting.pipeline import ABLATE_ARMS as FIT_ARMS
 from ..fitting.pipeline import FittingLossOut, fitting_loss_shape
 from ..fitting.spline_apply import trained_spline_fit
@@ -159,17 +159,19 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
         for k in ("geom_loss", "spline_loss", "seg_iou", "prim_iou"):
             metrics[k] = torch.mean(torch.stack([getattr(o, k)
                                                  for o in outs]))
-        metrics["clusters"] = torch.tensor(
-            float(np.mean([o.num_clusters for o in outs])),
-            dtype=torch.float32, device=x.device)
+        with trace("sync.clusters_metric"):
+            metrics["clusters"] = torch.tensor(
+                float(np.mean([o.num_clusters for o in outs])),
+                dtype=torch.float32, device=x.device)
         return e_loss + p_loss + res_loss, metrics
 
     def train_step(x, labels, prim, draws, lr: float,
                    timer: StageTimer = NO_TIMER):
-        return accumulated_step(
-            optimizer, params,
-            lambda a: loss_fn(x[a], labels[a], prim[a], draws[a], timer),
-            x.shape[0], METRICS, lr, timer, mesh)
+        with trace("entry.e2e_train_step"):
+            return accumulated_step(
+                optimizer, params,
+                lambda a: loss_fn(x[a], labels[a], prim[a], draws[a], timer),
+                x.shape[0], METRICS, lr, timer, mesh)
 
     @torch.no_grad()
     def eval_step(x, labels, prim, draws):

@@ -32,7 +32,7 @@ from ..core.checkpoint import (PlateauScheduler, load_train_state,
                                save_train_state)
 from ..core.config import Config, load_config
 from ..core.logging import setup_logging, snapshot_config
-from ..core.profiling import StageTimer
+from ..core.profiling import StageTimer, trace
 from ..losses.embedding import draw_triplet, primitive_nll_loss, triplet_loss
 from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
                             params_from_jax, params_to_jax)
@@ -46,7 +46,8 @@ from .state import (NO_TIMER, TrainResult, accumulated_step, make_optimizer,
 
 log = logging.getLogger(__name__)
 
-STAGES = ("forward", "backward", "optimizer")
+# "forward" holds dgcnn_forward and embed_losses, named as train_e2e names them
+STAGES = ("forward", "dgcnn_forward", "embed_losses", "backward", "optimizer")
 METRICS = ("embed_loss", "prim_loss", "miou")
 
 
@@ -65,10 +66,12 @@ def make_step_fns(model: PrimitivesEmbedding,
     metrics (train.state.accumulated_step)."""
     params = list(model.parameters())
 
-    def loss_fn(points, labels, prim, u_points, u_pairs):
-        emb, prim_logp = model(points)
-        e_loss = triplet_loss(emb, labels, u_points, u_pairs, mesh=mesh)
-        p_loss = primitive_nll_loss(prim_logp, prim)
+    def loss_fn(points, labels, prim, u_points, u_pairs, timer=NO_TIMER):
+        with timer("dgcnn_forward"):
+            emb, prim_logp = model(points)
+        with timer("embed_losses"):
+            e_loss = triplet_loss(emb, labels, u_points, u_pairs, mesh=mesh)
+            p_loss = primitive_nll_loss(prim_logp, prim)
         return e_loss + p_loss, {
             "embed_loss": e_loss, "prim_loss": p_loss,
             "miou": mean_iou_per_class(prim, prim_logp.detach())}
@@ -78,9 +81,11 @@ def make_step_fns(model: PrimitivesEmbedding,
         def micro(a):
             with timer("forward"):
                 return loss_fn(points[a], labels[a], prim[a], u_points[a],
-                               u_pairs[a])
-        return accumulated_step(optimizer, params, micro, points.shape[0],
-                                METRICS, lr, timer, mesh)
+                               u_pairs[a], timer)
+        with trace("entry.seg_train_step"):
+            return accumulated_step(optimizer, params, micro,
+                                    points.shape[0], METRICS, lr, timer,
+                                    mesh)
 
     @torch.no_grad()
     def eval_step(points, labels, prim, u_points, u_pairs):

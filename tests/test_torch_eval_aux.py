@@ -11,7 +11,6 @@ on 2 batches of 4 patches from the shipped npz, cd_optim within 1e-4
 relative, where a decoder's kNN breaks a near-tie otherwise than the JAX
 package's: with the JAX package's kNN graphs.
 """
-import json
 import os
 
 import jax
@@ -198,13 +197,23 @@ def test_resample_and_export_match_jax(fitted_shape, tmp_path):
 
 # ---- core/profiling.py
 
-def test_profiling_on_the_cpu(tmp_path):
-    with profiling.capture_trace(str(tmp_path)) as prof:
+def test_profiling_on_the_cpu(monkeypatch):
+    # without a profiler session a span is the shared no-op context: no
+    # record_function range is made
+    monkeypatch.setattr(torch.profiler, "record_function", None)
+    off = profiling.trace("port_region")
+    assert off is profiling.trace("other") and off.__enter__() is None
+    monkeypatch.undo()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with profiling.trace("port_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert any(e.key == "port_region" for e in prof.key_averages())
-    (path,) = tmp_path.glob("trace_*.json")
-    assert "port_region" in json.dumps(json.loads(path.read_text()))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with off:
+            torch.ones(8).sum()
+    assert not any(e.key == "port_region" for e in prof.key_averages())
     timer = profiling.StepTimer(skip_first=1)
     for _ in range(3):
         with timer.step("cpu"):
@@ -215,6 +224,18 @@ def test_profiling_on_the_cpu(tmp_path):
     with stages("x"):
         pass
     assert stages.events == {}
+
+
+def test_setup_logging_follows_the_run_directory(tmp_path):
+    from parsenet_tpu_torch.core.logging import setup_logging
+    first = setup_logging(str(tmp_path / "a"), "one")
+    first.info("to a")
+    second = setup_logging(str(tmp_path / "b"), "two")
+    second.info("to b")
+    assert second is first and len(second.handlers) == 2
+    assert "to a" in (tmp_path / "a/logs/one.log").read_text()
+    assert "to b" not in (tmp_path / "a/logs/one.log").read_text()
+    assert "to b" in (tmp_path / "b/logs/two.log").read_text()
 
 
 # ---- eval/splines.py
