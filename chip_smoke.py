@@ -9,10 +9,10 @@ Phases, one line each (plus detail lines):
      power limit;
   2. build: nvcc of every kernel source under parsenet_tpu_torch/csrc;
      the ptxas lines (registers, spills, warnings: no spill and no
-     C7513/C7514 "wgmma serialized" note in either K1 library), the count of
+     C751x "wgmma serialized" note in either K1 library), the count of
      HGMMA (wgmma) instructions in the SASS of each instantiation of both
      tensor-core K1s (bf16 and 3xTF32): the fixed-count ones must keep
-     their 24 and 108, the early-exit ones must have some, and the
+     their 24 and 76, the early-exit ones must have some, and the
      instructions of K3's scan loop for each R, per (target, query) pair;
   3. kernel vs plain on the card at main-path shapes:
      K1 f32 (3xTF32 tensor-core kernel) at the 10,000 x 128 stream-a
@@ -206,6 +206,11 @@ Phases, one line each (plus detail lines):
      the f32 FMA floors), the floor the exponentials set on the MUFU
      units, the bf16 launch alone, without the wrapper's tiling and
      allocations, and both kernels' two grids at 10,000 and 4,999 rows;
+     the 3xTF32 kernel's operand probe (kernels.ms_tf32_operand_probe):
+     on every SM, a key tile's score product in each operand layout, its
+     update, and both, 8,192 tiles against operands held in shared memory,
+     each with its cycles a tile, shared-memory bytes an FMA, bytes a
+     clock an SM and share of the TF32 tensor rate;
      K1 exit at 10,000 x 128 x 50, tol 1e-6, on the 8 stream-a embeddings in
      both modes beside tol = 0, with the iterations it runs as a share of
      50 (kernels.mean_shift_exit_counts), the fixed-count bound scaled by
@@ -299,6 +304,10 @@ HBM_BYTES_S = 3.35e12
 # capability 9.0) at 1.83 GHz, the clock at which 132 x 4,096 bf16 FLOP a
 # clock make the 989 TFLOP/s above
 MUFU_EX2_S = 132 * 16 * 1.83e9
+# TF32 FMA a clock an SM on the tensor cores: 495 TFLOP/s over 132 SMs at
+# 1.83 GHz; and the key tiles of each run of the tf32 kernel's operand probe
+TF32_FMA_CLOCK = PEAK_TF32 / 2 / 132 / 1.83e9
+PROBE_TILES = 8192
 
 # stream-a quality of the JAX package, printed beside the port's: the full
 # path (BENCH_r05.json) and the spline-free arm (artifacts/
@@ -1539,7 +1548,7 @@ def main():
         # per kernel: the fixed-count one keeps the count it had before the
         # early exit was added beside it; the exit (ms_exit_kernel) has some
         for kname, src, fixed in (("K1tc", "ms_iterations_tc.cu", 24),
-                                  ("K1", "ms_iterations_tf32.cu", 108)):
+                                  ("K1", "ms_iterations_tf32.cu", 76)):
             by_fn = sass_count_by_function(kernels._lib_path(kname), "HGMMA")
             tol0 = sum(v for f, v in by_fn.items()
                        if "ms_tc_kernel" in f or "ms_tf32_kernel" in f)
@@ -1552,9 +1561,12 @@ def main():
             log = kernels.BUILD_LOG.get(kname, "")
             spills = [ln.strip() for ln in log.splitlines()
                       if re.search(r"[1-9]\d* bytes spill", ln)]
-            check(not spills and "C7513" not in log and "C7514" not in log,
-                  f"{src}: no spills and no C7513/C7514 note from ptxas "
-                  f"({spills})")
+            serialized = sorted(set(re.findall(r"\(C751\d\)", log)))
+            report[f"{kname}_ptxas"] = {"spills": spills,
+                                        "serialized": serialized}
+            check(not spills and not serialized,
+                  f"{src}: no spills and no C751x \"wgmma serialized\" note "
+                  f"from ptxas ({spills}, {serialized})")
 
     phase(wgmma_in_sass)
 
@@ -3290,6 +3302,26 @@ def main():
         report["K1_f32_grid_ms"] = grids
         print("  K1 f32 through _ms_iterations_tf32: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in grids.items()), flush=True)
+        # the 3xTF32 kernel's products alone, on every SM: each score
+        # operand layout and the update, a key tile's worth at a time
+        # against operands held in shared memory (kernels.MS_TF32_PROBE)
+        probe = {}
+        for mode, (nbytes, fma) in kernels.MS_TF32_PROBE.items():
+            kernels.ms_tf32_operand_probe(dev, mode, 256)
+            r = kernels.ms_tf32_operand_probe(dev, mode, PROBE_TILES)
+            cyc = r["cycles_per_tile"]
+            # two consumer warpgroups a block, one block an SM
+            probe[mode] = {"cycles_per_tile": cyc, "ms": r["ms"],
+                           "bytes_per_fma": nbytes / fma,
+                           "smem_bytes_per_clock": 2 * nbytes / cyc,
+                           "tensor_share": 2 * fma / cyc / TF32_FMA_CLOCK}
+            print(f"  K1 f32 operand probe {mode}: {cyc:.1f} cycles a tile "
+                  f"({r['ms']:.3f} ms for {PROBE_TILES} tiles), "
+                  f"{nbytes / fma:.4f} shared-memory bytes an FMA, "
+                  f"{2 * nbytes / cyc:.1f} bytes a clock an SM, "
+                  f"{100.0 * 2 * fma / cyc / TF32_FMA_CLOCK:.1f}% of the "
+                  "TF32 tensor rate", flush=True)
+        report["K1_f32_operand_probe"] = probe
         # the tensor-core launch alone, without the wrapper's tiling and
         # allocations (the counters zeroed as the wrapper does)
         grid, slots = kernels.ms_plan(n, sms)

@@ -22,7 +22,8 @@
 // |a|; the tensor cores truncate it, an error of at most 2^-21 |a|), and a
 // product as hi.hi + hi.lo + lo.hi with f32 accumulation: three tensor-core
 // products where the bf16 kernel runs one. lo.lo (<= 2^-22 |a b|) is
-// dropped.
+// dropped. S adds them as (hi.hi + lo.hi) + hi.lo (two accumulators), O
+// += P X as one chain.
 //
 // Bound on this card: operations. One iteration is two N x N x 128
 // products, 4 N^2 D FLOP, tripled: 7.7e12 FLOP per 50-iteration call at
@@ -38,35 +39,55 @@
 // out once (kernels.ms_tiles_tf32) in 16-row tiles of 32 KB whose bytes are
 // already wgmma's 128-byte-swizzled canonical layout. Per key tile a
 // consumer runs
-//   S = m . X_t^T  48 x SS-wgmma m64n16k8 (16 k-steps x 3 products),
-//   P = ex2((s - 1) c), c = 2 inv2b2 log2(e): one FFMA + one MUFU a score,
+//   S = m . X_t^T  16 x (RS-wgmma m64n32k8: m hi from registers against the
+//                  tile's hi and lo rows as one 32-row operand, so hi.hi and
+//                  hi.lo in one product; SS-wgmma m64n16k8: m lo from shared
+//                  memory against the hi rows, lo.hi), 16 k-steps,
+//   P = ex2((s - 1) c), c = 2 inv2b2 log2(e): one FADD folding the n32
+//                  product's two halves, one FFMA + one MUFU a score,
 //                  the f32 row sums kept per thread, masked in the last tile,
 //                  P split into hi and lo tf32 A fragments in registers,
 //   O += P . X_t   6 x RS-wgmma m64n128k8 (2 k-steps x 3 products),
 // with the next tile's S issued together with this tile's update and its
-// exponentials run in place on the retired S accumulator while the tensor
-// cores do the update (FlashAttention-3's in-warpgroup pipeline), and
-// setmaxnreg moving registers from the producer to the consumers. The
-// work split over the card (kernels.ms_plan: (128-row block, key tile)
-// units cut into one run per SM, partial O and row sums of a shared row
-// block added through a workspace in L2 in the same order by every sharer,
-// under a cooperative launch) is the bf16 kernel's.
+// exponentials run while the tensor cores do the update (FlashAttention-3's
+// in-warpgroup pipeline), and setmaxnreg moving registers from the
+// producer to the consumers. The work split over the card (kernels.ms_plan:
+// (128-row block, key tile) units cut into one run per SM, partial O and
+// row sums of a shared row block added through a workspace in L2 in the
+// same order by every sharer, under a cooperative launch) is the bf16
+// kernel's.
+//
+// Shared-memory operand bytes, the limit of this design. A wgmma waits for
+// its operands: at the SM's 128 bytes a clock, an SS m64n16k8 (A 2 KB, B
+// 0.5 KB) takes 20 clocks for 8 clocks of TF32 work, an SS m64n32k8 24 for
+// 16, an RS m64n32k8 (B 1 KB) 8 for 16. Per key tile a consumer reads
+// 16 x (1 KB + 2.5 KB) = 56 KB for S and 6 x 4 KB = 24 KB for O, 160 KB a
+// block; m hi from shared memory (the exit's form) makes it 224 KB, and
+// three SS m64n16k8 a k-step (m hi read twice) 288 KB. The operand probe
+// (below; chip_smoke.py phase 6) times each layout's products alone on an
+// H100: a tile's S and O take 1,920 clocks an SM with m hi from registers,
+// 2,146 from shared memory, 2,646 in three m64n16k8 a k-step, against
+// 1,536 of TF32 work (PERF.md §6). m lo stays in shared memory: with it in
+// registers too (128 a thread beside O's 64) the consumers would spill.
 //
 // Where it differs from the bf16 kernel, and why:
 // - wgmma reads 32-bit (tf32) operands only K-major: it transposes 16-bit
 //   types only. The bf16 kernel reads one X tile K-major for S and
 //   MN-major for O += P X; here a key tile holds X twice: rows x features
-//   (K = features contiguous) for S, and its transpose, features x rows
-//   (K = rows contiguous), for the update, each as hi and lo. The
+//   (K = features contiguous) for S, each 32-feature block its 16 rows' hi
+//   and then their lo (the n32 product's B), and its transpose, features x
+//   rows (K = rows contiguous), for the update, as hi and lo. The
 //   transposed half packs the 16 rows' hi and lo into one 128-byte row of
 //   32 values, so both halves use the 128-byte swizzle (16-byte chunk j of
 //   a 128-byte row r stored at chunk j ^ (r % 8)).
-// - P is the A operand of the update, from registers. A tf32 A fragment
-//   holds columns k and k + 4 of a k-step (rows r, r + 8), while the S
+// - P and m hi are A operands from registers. A tf32 A fragment holds
+//   columns k and k + 4 of a k-step (rows r, r + 8), while the S
 //   accumulator hands a thread columns 2k and 2k + 1. So the wrapper
 //   stores the 8 rows of each k-step in the transposed half in the order
 //   0, 2, 4, 6, 1, 3, 5, 7: slot k of the k-step holds the key row that the
-//   thread's P value at slot k multiplies, and no shuffle is needed.
+//   thread's P value at slot k multiplies, and no shuffle is needed. m hi
+//   goes through shared memory once a segment instead: store_m writes it in
+//   the fragments' thread order and each thread loads its 64 values.
 // - Shared memory. An f32 tile is twice a bf16 tile and hi + lo doubles it
 //   again: m as hi + lo is 64 KB a consumer (128 KB a block), a 16-row key
 //   tile 32 KB, three stages 96 KB: 230,448 bytes of the 232,448 a block
@@ -76,11 +97,13 @@
 //   thread reads back what it wrote) and is split into shared memory again
 //   before that row block's tiles, once an iteration. The first
 //   iteration's m is read from the f32 queries directly.
-// - Registers. O is 64 x 128 f32, 64 registers a thread; S of a 16-row
-//   tile 8, P's hi and lo fragments 16. ptxas's C7513/C7514 notes ("wgmma
-//   serialized") would mean a register of an unfinished wgmma is written:
-//   P is split only after the update that reads the previous fragments
-//   retired, as in the bf16 kernel.
+// - Registers. O is 64 x 128 f32, 64 registers a thread; m hi 64, S of a
+//   16-row tile 16, its fold 8, P's hi and lo fragments 16. ptxas's
+//   C751x notes ("wgmma serialized") would mean a register of an
+//   unfinished wgmma is written, or too few registers for the pipeline: P
+//   is split only after the update that reads the previous fragments
+//   retired, as in the bf16 kernel, and the exponentials run on the fold,
+//   never in the n32 accumulator.
 // - Exponentials: ex2.approx.ftz with the FFMA pre-scale, within a few ulp
 //   of expf; columns >= nk are exactly 0, as in expf's masked version.
 // A wait that never ends traps instead of hanging the card.
@@ -88,7 +111,8 @@
 // K1's early exit (tol > 0; the TPU kernel's early_exit=True variant,
 // _make_ms_multi_kernel :165-180, chosen at :213) is ms_exit.cuh's kernel
 // (shared with the bf16 kernel) on this source's tile pipeline
-// (segment_tiles) and m operand (store_m); the delta is taken on the f32 m
+// (segment_tiles) and m operand (store_m), with m hi read from shared
+// memory (the n32 product's SS form); the delta is taken on the f32 m
 // before it is split into hi and lo.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,9 +131,9 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;              // 128 x 40 + 256 x 232 <= 384 x 168
 constexpr uint32_t M_HALF = MTILE * D * 4;      // m hi (or lo) of a consumer: 32 KB
 constexpr uint32_t M_KBLK = MTILE * 128;        // 32 columns of m's 64 rows
-constexpr uint32_t X_KBLK = TILE * 128;         // 32 columns of a tile's 16 rows
-constexpr uint32_t X_HALF = 4 * X_KBLK;         // a tile's rows x features, hi or lo
-constexpr uint32_t X_TRANS = 2 * X_HALF;        // offset of the transposed half
+// 32 columns of a tile's rows x features: its 16 rows' hi, then their lo
+constexpr uint32_t X_KBLK = 2 * TILE * 128;
+constexpr uint32_t X_TRANS = 4 * X_KBLK;        // offset of the transposed half
 constexpr uint32_t TILE_BYTES = 2 * X_TRANS;    // 32 KB
 constexpr uint32_t M_WG_BYTES = 2 * M_HALF;     // a consumer's m, hi and lo
 // a block's partial O and row sums in the workspace, per consumer: 16
@@ -244,6 +268,62 @@ __device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t da,
         : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32, both from shared memory.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with A from registers.
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 16] += A[64 x 8] B[8 x 16], A from registers (the operand
+// probe's PROBE_RS).
+__device__ __forceinline__ void mma_rs_n16(float (&d)[8], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+        "\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// The first 8 of an n32 accumulator's registers: its columns 0-15, the
+// registers an n16 product of the same rows accumulates into.
+__device__ __forceinline__ float (&low_cols(float (&d)[16]))[8] {
+    return *reinterpret_cast<float (*)[8]>(&d[0]);
+}
+
 // d[64 x 128] += A[64 x 8] B[8 x 128], tf32, A from registers, B from
 // shared memory.
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64], uint32_t a0,
@@ -302,21 +382,55 @@ __device__ __forceinline__ void consumers_barrier() {
     asm volatile("bar.sync 3, %0;" :: "n"(CONSUMERS * 128) : "memory");
 }
 
-// S = m . X_t^T over D = 128: 16 k-steps of 8 through the four 32-column
-// blocks of both swizzled operands, each as hi.hi + hi.lo + lo.hi.
-__device__ __forceinline__ void issue_scores(float (&s)[8], uint32_t m,
-                                             uint32_t xs) {
+// Where the score product reads m hi from: registers (the fixed-count
+// kernel: an RS-wgmma, which reads no A operand from shared memory), or
+// shared memory (the exit, whose consumers cannot hold m hi's 64 more
+// registers beside its plan without spilling).
+enum MHi { M_HI_REGS, M_HI_SMEM };
+
+// The scores of a tile over D = 128, 16 k-steps of 8 through the four
+// 32-column blocks of the swizzled key tile: m hi against the block's 32
+// rows (the tile's hi, then its lo) in one m64n32k8, so that s[0..7] (its
+// columns 0-15) take hi.hi and s[8..15] (columns 16-31) hi.lo, and m lo
+// (shared memory) against the hi rows in one m64n16k8 into s[0..7]
+// (lo.hi). m hi comes from `mh` (M_HI_REGS) or from shared memory at m,
+// where it is read once for the two products it takes part in.
+template <MHi MH>
+__device__ __forceinline__ void issue_scores(float (&s)[16],
+                                             const uint32_t (&mh)[64],
+                                             uint32_t m, uint32_t xs) {
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
         const uint32_t om = (k >> 2) * M_KBLK + (k & 3) * 32;
-        const uint32_t ox = (k >> 2) * X_KBLK + (k & 3) * 32;
-        const uint64_t m_hi = smem_desc(m + om);
-        const uint64_t m_lo = smem_desc(m + M_HALF + om);
-        const uint64_t x_hi = smem_desc(xs + ox);
-        mma_ss_n16(s, m_hi, x_hi, k > 0);
-        mma_ss_n16(s, m_hi, smem_desc(xs + X_HALF + ox), 1);
-        mma_ss_n16(s, m_lo, x_hi, 1);
+        const uint64_t x = smem_desc(xs + (k >> 2) * X_KBLK + (k & 3) * 32);
+        if constexpr (MH == M_HI_REGS)
+            mma_rs_n32(s, mh[4 * k], mh[4 * k + 1], mh[4 * k + 2],
+                       mh[4 * k + 3], x, k > 0);
+        else
+            mma_ss_n32(s, smem_desc(m + om), x, k > 0);
+        mma_ss_n16(low_cols(s), smem_desc(m + M_HALF + om), x, 1);
     }
+}
+
+// S = (hi.hi + lo.hi) + hi.lo into p: s[i] and s[8 + i] hold one key's
+// columns. p is apart from s: the exponentials written into the retired
+// n32 accumulator made ptxas serialize every wgmma (C7511).
+__device__ __forceinline__ void fold_scores(float (&p)[8],
+                                            const float (&s)[16]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i] = s[i] + s[8 + i];
+}
+
+// This thread's tf32 A fragments of m hi for the 16 k-steps (a float4
+// each, in the thread order store_m<M_HI_REGS> writes), into registers.
+__device__ __forceinline__ void load_m_hi(uint32_t (&mh)[64], uint32_t m) {
+    const uint32_t mine = m + (threadIdx.x % 128) * 16;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+        asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(mh[4 * k]), "=r"(mh[4 * k + 1]),
+                       "=r"(mh[4 * k + 2]), "=r"(mh[4 * k + 3])
+                     : "r"(mine + k * 128 * 16) : "memory");
 }
 
 // O += P . X_t over the tile's 16 rows: 2 k-steps of 8 rows, the
@@ -382,19 +496,27 @@ __device__ __forceinline__ void split_tile(const float (&s)[8],
     }
 }
 
-// Byte offset of element (row, col) in a consumer's swizzled m (hi; lo is
-// M_HALF further): four 32-column blocks of 64 rows x 128 bytes.
+// Byte offset of element (row, col) in a consumer's swizzled m (lo, M_HALF
+// on; hi here in M_HI_SMEM's layout): four 32-column blocks of 64 rows x
+// 128 bytes.
 __device__ __forceinline__ uint32_t m_offset(int row, int col) {
     return (col >> 5) * M_KBLK + row * 128
          + ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
 }
 
 // This thread's values of m (rows r, r + 8; columns 8 j + 2 q, + 1 in
-// v[4 j .. 4 j + 3], the accumulator layout) into the consumer's swizzled
-// m as hi and lo, visible to wgmma (the async proxy) afterwards.
+// v[4 j .. 4 j + 3], the accumulator layout) into the consumer's m in
+// shared memory as hi and lo, visible to wgmma (the async proxy)
+// afterwards. lo, and hi for M_HI_SMEM, in the swizzled K-major layout;
+// hi for M_HI_REGS as the A fragments of the 16 k-steps in thread order,
+// a float4 a thread a k-step: element (R, C) is slot (R % 16) / 8 +
+// 2 ((C % 8) / 4) of k-step C / 8 of the thread of R's quad whose lane % 4
+// is C % 4 (load_m_hi).
+template <MHi MH = M_HI_SMEM>
 __device__ __forceinline__ void store_m(const float (&v)[64], uint32_t m,
                                        int r, int q, int wg) {
     wg_barrier(1 + wg);   // every wgmma of this warpgroup has read the old m
+    const uint32_t quad = (threadIdx.x % 128) & ~3u;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
         const int col = 8 * j + 2 * q;
@@ -403,8 +525,18 @@ __device__ __forceinline__ void store_m(const float (&v)[64], uint32_t m,
             const uint32_t off = m_offset(r + 8 * h, col);
             const float a = v[4 * j + 2 * h], b = v[4 * j + 2 * h + 1];
             const uint32_t ha = tf32_hi(a), hb = tf32_hi(b);
-            asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
-                         :: "r"(m + off), "r"(ha), "r"(hb) : "memory");
+            if constexpr (MH == M_HI_SMEM) {
+                asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
+                             :: "r"(m + off), "r"(ha), "r"(hb) : "memory");
+            } else {
+                // column col + h of rows r and r + 8: slots 2 (q / 2) and
+                // 2 (q / 2) + 1 of its thread's fragment
+                const uint32_t t = quad | ((2 * q + h) & 3);
+                asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
+                             :: "r"(m + (j * 128 + t) * 16 + (q >> 1) * 8),
+                                "r"(tf32_hi(v[4 * j + h])),
+                                "r"(tf32_hi(v[4 * j + 2 + h])) : "memory");
+            }
             asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
                          :: "r"(m + M_HALF + off),
                             "r"(__float_as_uint(a - __uint_as_float(ha))),
@@ -484,7 +616,7 @@ __device__ __forceinline__ void store_rows(const float (&o)[64], Dest dest,
                                            int row0, int nq, int r, int q,
                                            int wg, int tid) {
     if (dest == TO_SMEM) {
-        store_m(o, m_smem, r, q, wg);
+        store_m<M_HI_REGS>(o, m_smem, r, q, wg);
     } else if (dest == TO_SPILL) {
         float* sp = spill + wg * MTILE * D + tid * 4;
 #pragma unroll
@@ -564,12 +696,13 @@ __device__ __forceinline__ void load_sums(float (&o)[64], const float* sums) {
 // tile's ring slot given back to the producer. A software pipeline: the
 // scores of the next tile are issued with the update of this one, and
 // their exponentials run while the tensor cores do the update; they are
-// split into the next A fragments only after the update retired. CHAINS
-// (the early exit): o is added into `sums` and zeroed after the last tile
-// of each aligned group of EXIT_CHAIN, and at the end, where it is loaded
-// back: o holds the sums on return. (A loop over chains around the
-// pipeline instead spills: ptxas, 220 bytes.)
-template <bool CHAINS = false>
+// split into the next A fragments only after the update retired. MH: m hi
+// from registers, loaded once (store_m<M_HI_REGS>'s layout), or from
+// shared memory. CHAINS (the early exit): o is added into `sums` and
+// zeroed after the last tile of each aligned group of EXIT_CHAIN, and at
+// the end, where it is loaded back: o holds the sums on return. (A loop
+// over chains around the pipeline instead spills: ptxas, 220 bytes.)
+template <bool CHAINS, MHi MH>
 __device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
                                               float& rs1, uint32_t my_m,
                                               uint32_t x_smem,
@@ -579,37 +712,45 @@ __device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
                                               int nk, int q, float c,
                                               int lane,
                                               float* sums = nullptr) {
+    // the same in every lane: the operands' descriptors stay on the
+    // uniform datapath
+    my_m = __shfl_sync(0xffffffffu, my_m, 0);
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] = 0.f;
     rs0 = 0.f;   // row sums of rows r, r + 8
     rs1 = 0.f;
     bool fresh = true;   // CHAINS: no chain has reached `sums` yet
-    float s[8];
-    uint32_t ph[8], pl[8];
+    float s[16], p[8];
+    uint32_t ph[8], pl[8], mh[64];
+    if constexpr (MH == M_HI_REGS) {
+        load_m_hi(mh, my_m);
+        reg_fence(mh);
+    }
     mbar_wait(full_bar + 8 * stage, phase);
     wg_fence();
-    issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
+    issue_scores<MH>(s, mh, my_m, x_smem + stage * TILE_BYTES);
     wg_commit();
     wg_wait<0>();
     reg_fence(s);
-    exp_tile(s, rs0, rs1, t0, nk, q, c);
-    split_tile(s, ph, pl);
+    fold_scores(p, s);
+    exp_tile(p, rs0, rs1, t0, nk, q, c);
+    split_tile(p, ph, pl);
     for (int t = t0; t + 1 < t1; ++t) {
         const int cur = stage;
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
         mbar_wait(full_bar + 8 * stage, phase);
-        reg_fence(s);
         reg_fence(ph);
         reg_fence(pl);
         reg_fence(o);
         wg_fence();   // every register write lands before wgmma
-        issue_scores(s, my_m, x_smem + stage * TILE_BYTES);
+        issue_scores<MH>(s, mh, my_m, x_smem + stage * TILE_BYTES);
         wg_commit();
         issue_update(o, ph, pl, x_smem + cur * TILE_BYTES);
         wg_commit();
         wg_wait<1>();   // the scores; the update may still run
         reg_fence(s);
-        exp_tile(s, rs0, rs1, t + 1, nk, q, c);
+        fold_scores(p, s);
+        exp_tile(p, rs0, rs1, t + 1, nk, q, c);
         wg_wait<0>();
         reg_fence(o);
         reg_fence(ph);
@@ -623,7 +764,7 @@ __device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
                 fresh = false;
             }
         }
-        split_tile(s, ph, pl);
+        split_tile(p, ph, pl);
     }
     reg_fence(ph);
     reg_fence(pl);
@@ -655,8 +796,9 @@ __device__ __forceinline__ void exit_tiles(float (&o)[64], float& rs0,
                                            uint32_t& phase, int t0, int t1,
                                            int n, int q, float c, int lane,
                                            float* sums) {
-    segment_tiles<true>(o, rs0, rs1, my_m, x_smem, full_bar, empty_bar, stage,
-                        phase, t0, t1, n, q, c, lane, sums);
+    segment_tiles<true, M_HI_SMEM>(o, rs0, rs1, my_m, x_smem, full_bar,
+                                   empty_bar, stage, phase, t0, t1, n, q, c,
+                                   lane, sums);
 }
 
 #include "ms_exit.cuh"
@@ -756,7 +898,7 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                 float o[64];
                 if (it == 0) {          // m0: the queries themselves
                     load_rows(o, qrows, row0, nq, r, q);
-                    store_m(o, my_m, r, q, wg);
+                    store_m<M_HI_REGS>(o, my_m, r, q, wg);
                 } else if (k == 1) {    // m of the second row block
                     const float* sp = spill + wg * MTILE * D + tid * 4;
 #pragma unroll
@@ -766,11 +908,13 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                         o[4 * i] = v.x; o[4 * i + 1] = v.y;
                         o[4 * i + 2] = v.z; o[4 * i + 3] = v.w;
                     }
-                    store_m(o, my_m, r, q, wg);
+                    store_m<M_HI_REGS>(o, my_m, r, q, wg);
                 }
                 float rs0, rs1;
-                segment_tiles(o, rs0, rs1, my_m, x_smem, full_bar, empty_bar,
-                              stage, phase, sg.t0, sg.t1, nk, q, c, lane);
+                segment_tiles<false, M_HI_REGS>(o, rs0, rs1, my_m, x_smem,
+                                                full_bar, empty_bar, stage,
+                                                phase, sg.t0, sg.t1, nk, q, c,
+                                                lane);
                 if (sg.contrib == 1) {   // then this is the only segment
                     finish_rows(o, rs0, rs1, last ? TO_OUT : TO_SMEM, my_m,
                                 spill, out, row0, nq, r, q, wg, tid);
@@ -828,7 +972,140 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
     }
 }
 
+// ---- The operand probe (chip_smoke.py phase 6; no path runs it). Both
+// consumer warpgroups of a block repeat one key tile's score product, its
+// update product, or both, `tiles` times against m and one key tile held
+// in shared memory: no producer, no exponentials, so that the time is the
+// products' and their operands' alone. The score product comes in four
+// operand layouts, each the same 3 x 64 x 16 x 128 FMA a tile:
+//   PROBE_SS3    48 SS m64n16k8: m hi and lo from shared memory, the tile's
+//                hi and lo rows as two operands (m hi read twice a k-step);
+//   PROBE_N32    16 SS m64n32k8 (m hi against the tile's hi and lo rows as
+//                one operand) + 16 SS m64n16k8 (m lo against hi): the exit;
+//   PROBE_RS_HI  PROBE_N32 with m hi from registers: the fixed-count kernel;
+//   PROBE_RS     PROBE_N32 with m hi and lo from registers;
+// with UPDATE, the update's 6 RS m64n128k8 (issue_update) follow, as in
+// the kernel.
+enum ProbeScore { PROBE_NONE, PROBE_SS3, PROBE_N32, PROBE_RS_HI, PROBE_RS };
+constexpr size_t PROBE_SMEM_BYTES = 1024 + CONSUMERS * M_WG_BYTES
+                                  + TILE_BYTES;
+
+template <int SCORE, bool UPDATE>
+__global__ void __launch_bounds__(CONSUMERS * 128, 1)
+operand_probe_kernel(long long* __restrict__ cycles, int tiles) {
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    // small values that tf32 holds whole, so no product is a denormal
+    for (uint32_t i = threadIdx.x; i < (PROBE_SMEM_BYTES - 1024) / 4;
+         i += blockDim.x)
+        asm volatile("st.shared.b32 [%0], %1;" :: "r"(base + 4 * i),
+                     "r"(__float_as_uint(0.0625f * (float)(i % 13) - 0.375f))
+                     : "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    const uint32_t m_base = base + wg * M_WG_BYTES;
+    const uint32_t x_base = base + CONSUMERS * M_WG_BYTES;
+    constexpr bool HI_REGS = SCORE == PROBE_RS_HI || SCORE == PROBE_RS;
+    float s[16], o[64];
+    uint32_t ph[8], pl[8], mh[64], ml[64];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        o[i] = 0.f;
+        mh[i] = __float_as_uint(0.125f * (float)((tid + i) % 5));
+        ml[i] = __float_as_uint(0.0009765625f * (float)((tid + i) % 3));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        ph[i] = __float_as_uint(0.25f * (float)((tid + i) % 7));
+        pl[i] = __float_as_uint(0.0001220703125f * (float)((tid + i) % 3));
+    }
+    const long long t0 = clock64();
+    for (int t = 0; t < tiles; ++t) {
+        // the operands' addresses are computed a tile, as the kernel's ring
+        // slots are, and not hoisted out of the loop
+        uint32_t xs = x_base, m = m_base;
+        asm volatile("" : "+r"(xs), "+r"(m));
+        reg_fence(s);
+        if constexpr (UPDATE) reg_fence(o);
+        if constexpr (HI_REGS) reg_fence(mh);
+        if constexpr (SCORE == PROBE_RS) reg_fence(ml);
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            const uint32_t om = (k >> 2) * M_KBLK + (k & 3) * 32;
+            const uint64_t m_hi = smem_desc(m + om);
+            const uint64_t m_lo = smem_desc(m + M_HALF + om);
+            const uint32_t ox = xs + (k >> 2) * X_KBLK + (k & 3) * 32;
+            const uint64_t x = smem_desc(ox);   // hi rows, then lo rows
+            if constexpr (SCORE == PROBE_SS3) {
+                mma_ss_n16(low_cols(s), m_hi, x, k > 0);
+                mma_ss_n16(low_cols(s), m_hi, smem_desc(ox + TILE * 128), 1);
+                mma_ss_n16(low_cols(s), m_lo, x, 1);
+            } else if constexpr (SCORE == PROBE_N32) {
+                mma_ss_n32(s, m_hi, x, k > 0);
+            } else if constexpr (HI_REGS) {
+                mma_rs_n32(s, mh[4 * k], mh[4 * k + 1], mh[4 * k + 2],
+                           mh[4 * k + 3], x, k > 0);
+            }
+            if constexpr (SCORE == PROBE_N32 || SCORE == PROBE_RS_HI)
+                mma_ss_n16(low_cols(s), m_lo, x, 1);
+            if constexpr (SCORE == PROBE_RS)
+                mma_rs_n16(low_cols(s), ml[4 * k], ml[4 * k + 1],
+                           ml[4 * k + 2], ml[4 * k + 3], x);
+        }
+        if constexpr (UPDATE) issue_update(o, ph, pl, xs);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(s);
+        if constexpr (UPDATE) reg_fence(o);
+    }
+    const long long t1 = clock64();
+    if (tid == 0) cycles[blockIdx.x * CONSUMERS + wg] = t1 - t0;
+    float keep = 0.f;   // the products' results stay live
+#pragma unroll
+    for (int i = 0; i < 16; ++i) keep += s[i];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) keep += o[i];
+    if (keep == 1234.5f) cycles[0] = -1;
+}
+
+template <int SCORE, bool UPDATE>
+int probe_launch(long long* cycles, int tiles, int grid, cudaStream_t s) {
+    cudaError_t err = cudaFuncSetAttribute(
+        operand_probe_kernel<SCORE, UPDATE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PROBE_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    operand_probe_kernel<SCORE, UPDATE>
+        <<<grid, CONSUMERS * 128, PROBE_SMEM_BYTES, s>>>(cycles, tiles);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The operand probe: `grid` blocks of two consumer warpgroups, each
+// running `tiles` tiles of mode `mode` (kernels.MS_TF32_PROBE's order: the
+// four score layouts, the update, then each score layout with the update);
+// cycles: grid x 2 int64, the clock64 cycles of each warpgroup's loop.
+extern "C" int ms_tf32_operand_probe(void* cycles, int mode, int tiles,
+                                     int grid, void* stream) {
+    long long* c = static_cast<long long*>(cycles);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (mode) {
+        case 0: return probe_launch<PROBE_SS3, false>(c, tiles, grid, s);
+        case 1: return probe_launch<PROBE_N32, false>(c, tiles, grid, s);
+        case 2: return probe_launch<PROBE_RS_HI, false>(c, tiles, grid, s);
+        case 3: return probe_launch<PROBE_RS, false>(c, tiles, grid, s);
+        case 4: return probe_launch<PROBE_NONE, true>(c, tiles, grid, s);
+        case 5: return probe_launch<PROBE_SS3, true>(c, tiles, grid, s);
+        case 6: return probe_launch<PROBE_N32, true>(c, tiles, grid, s);
+        case 7: return probe_launch<PROBE_RS_HI, true>(c, tiles, grid, s);
+        case 8: return probe_launch<PROBE_RS, true>(c, tiles, grid, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
 
 // K1 f32 (queries = keys) and K5 (one iteration, queries apart). q: the f32
 // queries [nq, 128]; xt: the keys as tf32 tiles (the wrapper's

@@ -394,14 +394,15 @@ def ms_tiles_tf32(X: torch.Tensor) -> torch.Tensor:
     """The tf32 K1's keys: X [N, D <= 128] f32, zero-padded to
     [ceil(N / 16) * 16, 128], split by `tf32_split` and cut into 16-row
     tiles of 8,192 f32 (32 KB), flat. A tile's first half is its rows x
-    features, hi then lo, each four 32-column blocks of 16 rows x 128 bytes
-    (the operand of S = m X^T); its second half the transpose, 128 feature
-    rows of 32 values (16 key rows' hi, then their lo; in each group of 8
-    the rows in MS_TF32_SLOT_ROW order; the operand of O += P X). Both in
-    wgmma's 128-byte swizzle: the 16-byte chunk j of a 128-byte row r is
-    stored at chunk j ^ (r % 8). So, with hl 0 for hi and 1 for lo, element
-    (R, C) of a tile lies at
-      2048 hl + 512 (C // 32) + 32 R + 4 (((C % 32) // 4) ^ (R % 8)) + C % 4
+    features, four 32-column blocks of 32 rows x 128 bytes: the 16 rows'
+    hi, then their lo (the operand of S = m X^T: one m64n32k8 takes m hi
+    against all 32 rows, an m64n16k8 m lo against the first 16); its
+    second half the transpose, 128 feature rows of 32 values (16 key rows'
+    hi, then their lo; in each group of 8 the rows in MS_TF32_SLOT_ROW
+    order; the operand of O += P X). Both in wgmma's 128-byte swizzle: the
+    16-byte chunk j of a 128-byte row r is stored at chunk j ^ (r % 8). So,
+    with hl 0 for hi and 1 for lo, element (R, C) of a tile lies at
+      1024 (C // 32) + 512 hl + 32 R + 4 (((C % 32) // 4) ^ (R % 8)) + C % 4
     and at 4096 + 32 C + 4 ((s // 4) ^ (C % 8)) + s % 4, slot
     s = 16 hl + 8 (R // 8) + MS_TF32_SLOT_ROW.index(R % 8)."""
     n, d = X.shape
@@ -428,8 +429,8 @@ def _tile_order(layout: str, device: torch.device) -> torch.Tensor:
             src = row * MS_WIDTH + half * 64 + (chunk ^ (row % 8)) * 8 + elem
         else:
             t, w = MS_TF32_TILE, MS_WIDTH
-            hl, kb, row, chunk, elem = torch.meshgrid(
-                torch.arange(2), torch.arange(4), torch.arange(t),
+            kb, hl, row, chunk, elem = torch.meshgrid(
+                torch.arange(4), torch.arange(2), torch.arange(t),
                 torch.arange(8), torch.arange(4), indexing="ij")
             nat = (hl * t * w + row * w + kb * 32
                    + (chunk ^ (row % 8)) * 4 + elem)
@@ -605,6 +606,53 @@ def mean_shift_step(m: torch.Tensor, x: torch.Tensor,
                           device=m.device).reshape(1).contiguous()
     grid = ms_plan(nq, _sm_count(m.device), MS_TF32_TILE, nk)[0]
     return _ms_iterations_tf32(m, x, inv, 1, grid, "K5")[:, :d]
+
+
+# The tf32 kernel's operand probe (ms_iterations_tf32.cu; chip_smoke.py
+# phase 6): mode -> (bytes of operands read from shared memory, FMA) of one
+# consumer warpgroup's key tile, in the C entry's order. The score modes
+# differ only in where their operands lie (ss3: three m64n16k8 a k-step,
+# m hi read twice; n32: the exit's; rs_hi: the fixed-count kernel's; rs: m
+# hi and lo both from registers); "update" is the tile's O += P X.
+_SCORE_FMA = 3 * 64 * 16 * 128
+_SCORE_BYTES = {"ss3": 48 * (2048 + 512), "n32": 16 * (3072 + 2560),
+                "rs_hi": 16 * (1024 + 2560), "rs": 16 * (1024 + 512)}
+_UPDATE_BYTES = 6 * 4096
+MS_TF32_PROBE = {
+    **{f"score_{k}": (v, _SCORE_FMA) for k, v in _SCORE_BYTES.items()},
+    "update": (_UPDATE_BYTES, _SCORE_FMA),
+    **{f"score_{k}+update": (v + _UPDATE_BYTES, 2 * _SCORE_FMA)
+       for k, v in _SCORE_BYTES.items()},
+}
+
+
+def ms_tf32_operand_probe(device, mode: str, tiles: int = 4096) -> dict:
+    """One launch of the tf32 kernel's operand probe on every SM of
+    `device`: both consumer warpgroups of each block run `tiles` key tiles
+    of `mode` (MS_TF32_PROBE) against operands held in shared memory. ->
+    the clock64 cycles a warpgroup took a tile (mean over the grid) and
+    the launch's ms (CUDA events). Counted in no LAUNCHES entry: it is a
+    measurement, not a kernel of a path."""
+    if "K1" not in _LIBS:
+        build_kernels()
+    fn = _LIBS["K1"].ms_tf32_operand_probe
+    fn.argtypes = [_P, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    grid = _sm_count(device)
+    cycles = torch.zeros(2 * grid, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    rc = fn(cycles.data_ptr(), list(MS_TF32_PROBE).index(mode), int(tiles),
+            grid, stream.cuda_stream)
+    end.record(stream)
+    if rc != 0:
+        raise RuntimeError(f"kernels: ms_tf32_operand_probe failed with "
+                           f"cudaError {rc}")
+    end.synchronize()
+    return {"cycles_per_tile": float(cycles.double().mean()) / tiles,
+            "ms": start.elapsed_time(end)}
 
 
 # ---------------------------------------------------------------------------
