@@ -2816,7 +2816,7 @@ def main():
                 launches = dict(kernels.LAUNCHES)
                 timer.ms()   # synchronises
                 ev = timer.events
-                ms_step = ev["knn_forward"][warm][0].elapsed_time(
+                ms_step = ev["forward"][warm][0].elapsed_time(
                     ev["optimizer"][-1][1]) / timed
                 stage = {k: sum(a.elapsed_time(b) for a, b in ev[k][warm:])
                          / timed for k in tsp.STAGES}

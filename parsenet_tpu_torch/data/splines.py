@@ -7,8 +7,9 @@ closed 28k / 3k / rest), and per batch `canon_batch`: mean-centring, PCA
 alignment and per-axis (anisotropic) or uniform bbox scaling, optionally
 augmented. `synthetic_batches` runs the same canonicalisation over
 `data.synthetic.make_spline_batch` patches. Batches are numpy tuples
-(points, controlpoints, scales, rotations). h5py is imported only when an
-h5 is read.
+(points, controlpoints, scales, rotations). `SplineDataset` takes the
+patches from an h5 or from arrays; h5py is imported only when an h5 is
+read.
 """
 from __future__ import annotations
 
@@ -73,6 +74,13 @@ def synthetic_batches(rng: np.random.RandomState, batch_size: int,
 
 
 class SplineDataset:
+    """Patches split, shuffled and canonicalised as the reference's loader
+    does. `SplineDataset(path, ...)` reads an h5 (points [S, N, 3],
+    controlpoints [S, G, G, 3]); `SplineDataset.from_arrays(points, cps,
+    ...)` takes the same arrays from memory. Either way the patches go
+    through the fixed split, the per-epoch shuffle, `canon_batch` and
+    `Augment`."""
+
     def __init__(self, path: str, batch_size: int, grid: int = 20,
                  closed: bool = False, seed: int = 0,
                  splits: Optional[Tuple[int, int]] = None):
@@ -80,6 +88,22 @@ class SplineDataset:
         with h5py.File(path, "r") as hf:
             points = np.array(hf.get("points")).astype(np.float32)
             cps = np.array(hf.get("controlpoints")).astype(np.float32)
+        self._split(points, cps, batch_size, grid, closed, seed, splits)
+
+    @classmethod
+    def from_arrays(cls, points: np.ndarray, cps: np.ndarray,
+                    batch_size: int, grid: int = 20, closed: bool = False,
+                    seed: int = 0,
+                    splits: Optional[Tuple[int, int]] = None
+                    ) -> "SplineDataset":
+        """The dataset of in-memory patches: points [S, N, 3] and their
+        control grids [S, G, G, 3], as an h5 would hold them."""
+        ds = cls.__new__(cls)
+        ds._split(np.asarray(points, np.float32), np.asarray(cps, np.float32),
+                  batch_size, grid, closed, seed, splits)
+        return ds
+
+    def _split(self, points, cps, batch_size, grid, closed, seed, splits):
         self.batch_size = batch_size
         self.grid = grid
         self.closed = closed

@@ -12,7 +12,9 @@ weights saved as an npz in the flax layout of params/*.npz. The chamfer runs
 through K3 forward and K4 backward. Each step draws its point count from
 `point_buckets` ("robust to density", reference train_open_splines.py:152),
 so shapes change from step to step; PyTorch runs eagerly and needs no
-static shapes.
+static shapes. `make_fed_step` is one step with its feed (the next batch,
+the point count, the copies to the card), which the loop and the
+benchmark call.
 
     python -m parsenet_tpu_torch.train.train_spline configs/config_open_splines.yml
     python -m parsenet_tpu_torch.train.train_spline configs/config_closed_splines.yml --closed
@@ -34,7 +36,7 @@ import torch
 from ..core.checkpoint import PlateauScheduler, save_npz_params
 from ..core.config import Config, load_config
 from ..core.logging import setup_logging, snapshot_config
-from ..core.profiling import StageTimer
+from ..core.profiling import StageTimer, trace
 from ..losses.spline import (control_points_permute_closed_reg_loss,
                              control_points_permute_reg_loss, laplacian_loss,
                              spline_reconstruction_loss,
@@ -50,7 +52,9 @@ from .state import (make_optimizer, rank_logger, rank_mean, set_lr,
 log = logging.getLogger(__name__)
 
 POINT_BUCKETS = (448, 704, 960, 1216, 1472, 1728, 1984)
-STAGES = ("knn_forward", "loss", "backward", "optimizer")
+# "loss" holds chamfer (K3; K4 runs in the backward), named as train_e2e
+# names its own
+STAGES = ("forward", "loss", "chamfer", "backward", "optimizer")
 _NO_TIMER = StageTimer(False)
 
 
@@ -98,14 +102,16 @@ def make_train_step(model: SplineNet, optimizer: torch.optim.Optimizer,
                    timer: StageTimer = _NO_TIMER):
         model.train()
         set_lr(optimizer, lr)
-        with timer("knn_forward"):
+        with timer("forward"):
             out = model(points)
         with timer("loss"):
             if anisotropic:
                 out_r, pts_r, cps_r = rescale_outputs(scales, out, points, cps)
             else:
                 out_r, pts_r, cps_r = out, points, cps
-            cd, _ = spline_reconstruction_loss_one_sided(nu, nv, out_r, pts_r)
+            with timer("chamfer"):
+                cd, _ = spline_reconstruction_loss_one_sided(nu, nv, out_r,
+                                                             pts_r)
             l_reg, permuted = reg_fn(out_r, cps_r, grid)
             if closed:
                 lap = torch.zeros((), dtype=out.dtype, device=out.device)
@@ -136,7 +142,63 @@ def make_train_step(model: SplineNet, optimizer: torch.optim.Optimizer,
 
 
 def _to(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    """`a` as f32 on `dev`; a copy from the host's pageable memory to
+    the card waits for the card's queue (span sync.h2d_input)."""
+    a = np.ascontiguousarray(a, np.float32)
+    if torch.device(dev).type == "cuda":
+        with trace("sync.h2d_input"):
+            return torch.as_tensor(a, device=dev)
+    return torch.as_tensor(a, device=dev)
+
+
+def make_fed_step(train_step, feed: Iterator,
+                  host_rng: np.random.RandomState, point_buckets, dev,
+                  mesh=None, drawn: Optional[list] = None):
+    """One optimizer step with its feed: fed_step(lr, loss_weight,
+    timer) takes the next batch of `feed` (numpy points, cps, scales,
+    rotations), draws the step's point count from `point_buckets` by
+    `host_rng` (capped at the batch's), keeps that many of each patch's
+    points, copies the batch to `dev` (this rank's slice under a mesh) and
+    runs train_step (`make_train_step`) -> the step's metrics; each
+    step's point count is appended to `drawn` if one is given. The
+    trainer's loop and the benchmark both call it. Spans: the step
+    (entry.spline_train_step), the wait for the batch (feed.next) and each
+    copy to the card (sync.h2d_input)."""
+    def fed_step(lr: float, loss_weight: float,
+                 timer: StageTimer = _NO_TIMER) -> dict:
+        with trace("entry.spline_train_step"):
+            with trace("feed.next"):
+                points, cps, scales, _ = next(feed)
+            npts = point_buckets[host_rng.randint(len(point_buckets))]
+            npts = min(npts, points.shape[1])
+            if drawn is not None:
+                drawn.append(npts)
+            batch = (_to(points[:, :npts], dev), _to(cps, dev),
+                     _to(scales, dev))
+            return train_step(*shard_batch(mesh, batch), lr, loss_weight,
+                              timer)
+    return fed_step
+
+
+def make_trainer(config: Config, closed: bool, anisotropic: bool, dev,
+                 mesh=None):
+    """The trainer's network (mode 1 closed, 0 open; k 10) from flax's
+    initialisers seeded config.seed, on `dev` (rank 0's weights under a
+    mesh), its optimizer (config.optim at config.lr) and `make_train_step`'s
+    steps over the 40 x 40 sample basis -> (model, optimizer, train_step,
+    eval_step)."""
+    grid = config.grid_size
+    nu_np, nv_np = uniform_knot_bspline(grid, grid, 3, 3, 40)
+    nu, nv = _to(nu_np, dev), _to(nv_np, dev)
+    model = SplineNet(grid=grid, k=10, mode=1 if closed else 0)
+    init_flax_like(model, torch.Generator().manual_seed(config.seed))
+    model.to(dev)
+    if mesh is not None:
+        replicate(mesh, model)
+    optimizer = make_optimizer(model.parameters(), config.optim, config.lr)
+    train_step, eval_step = make_train_step(model, optimizer, nu, nv, grid,
+                                            closed, anisotropic, mesh)
+    return model, optimizer, train_step, eval_step
 
 
 def run_training(config: Config, closed: bool = False,
@@ -178,9 +240,6 @@ def _train(config, closed, train_gen, val_gen, steps_per_epoch, val_steps,
     from ..data.splines import SplineDataset
 
     grid = config.grid_size
-    nu_np, nv_np = uniform_knot_bspline(grid, grid, 3, 3, 40)
-    nu, nv = _to(nu_np, dev), _to(nv_np, dev)
-
     if train_gen is None:
         # the config's split sizes where they are below the reference's
         default_tr, default_val = (28000, 3000) if closed else (50000, 10000)
@@ -191,21 +250,18 @@ def _train(config, closed, train_gen, val_gen, steps_per_epoch, val_steps,
         train_gen = ds.load_train_data(anisotropic=anisotropic, if_augment=True)
         val_gen = ds.load_val_data(anisotropic=anisotropic)
 
-    model = SplineNet(grid=grid, k=10, mode=1 if closed else 0)
-    init_flax_like(model, torch.Generator().manual_seed(config.seed))
-    model.to(dev)
-    replicate(mesh, model)
+    model, _, train_step, eval_step = make_trainer(config, closed,
+                                                   anisotropic, dev, mesh)
     train_gen = lookahead(train_gen)
-    optimizer = make_optimizer(model.parameters(), config.optim, config.lr)
-    train_step, eval_step = make_train_step(model, optimizer, nu, nv, grid,
-                                            closed, anisotropic, mesh)
     sched = PlateauScheduler(config.lr, patience=10, factor=0.5, min_lr=3e-5)
     ckpt_path = (os.path.join(config.log_dir, "checkpoints",
                               f"{config.model_path}.npz")
                  if checkpoint else None)
     steps_per_epoch = steps_per_epoch or max(
         config.num_train // config.batch_size, 1)
-    host_rng = np.random.RandomState(config.seed)
+    fed_step = make_fed_step(train_step, train_gen,
+                             np.random.RandomState(config.seed),
+                             point_buckets, dev, mesh)
     best_cd = float("inf")
     lr = config.lr
     mlog = rank_logger(mesh, config.log_dir, config.model_path)
@@ -215,13 +271,7 @@ def _train(config, closed, train_gen, val_gen, steps_per_epoch, val_steps,
         t0 = time.time()
         tr_metrics = []
         for _ in range(steps_per_epoch):
-            points, cps, scales, _ = next(train_gen)
-            npts = point_buckets[host_rng.randint(len(point_buckets))]
-            npts = min(npts, points.shape[1])
-            tr_metrics.append(train_step(
-                *shard_batch(mesh, (_to(points[:, :npts], dev), _to(cps, dev),
-                                    _to(scales, dev))),
-                lr, config.loss_weight, timer))
+            tr_metrics.append(fed_step(lr, config.loss_weight, timer))
         val_cds = []
         for _ in range(val_steps):
             points, cps, scales, _ = next(val_gen)

@@ -134,7 +134,7 @@ def main():
                                    checkpoint=False, device=dev, timer=timer)
             timer.ms()
             ev = timer.events
-            ms_step = ev["knn_forward"][3][0].elapsed_time(
+            ms_step = ev["forward"][3][0].elapsed_time(
                 ev["optimizer"][-1][1]) / 20
             runs.append({"losses": [s["loss"] for s in res.steps],
                          "val_cd": res.epochs[-1]["val_cd"],

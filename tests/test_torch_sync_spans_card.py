@@ -1,4 +1,4 @@
-"""On the card: every host synchronisation that the port's four entry
+"""On the card: every host synchronisation that the port's five entry
 points make in a request is one `sync.*` span.
 
 One request of each entry (tests/torch_entries.py) at the benchmark's
@@ -31,9 +31,11 @@ import torch_entries as te
 pytestmark = pytest.mark.card
 
 SYNC_WARNING = "called a synchronizing CUDA operation"
-# the benchmark's sizes: 10,000 points a test shape, 8,000 a training one
+# the benchmark's sizes: 10,000 points a test shape, 8,000 a training
+# one, the largest bucket of a SplineNet step
 POINTS = {"predict_segmentation": 10000, "batch_metrics": 10000,
-          "seg_train_step": 8000, "e2e_train_step": 8000}
+          "seg_train_step": 8000, "e2e_train_step": 8000,
+          "spline_train_step": 1984}
 
 
 @pytest.fixture

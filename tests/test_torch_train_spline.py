@@ -232,9 +232,14 @@ def test_config_files_parse_as_jax(tmp_path):
 
 def test_entry_point_trains_from_the_config_h5(tmp_path):
     """python -m parsenet_tpu_torch.train.train_spline <config> --closed,
-    on the CPU, from a tiny h5 named in the config."""
+    on the CPU, from a tiny h5 named in the config. The package logger is
+    first set up for another run, as an earlier test in the same process
+    leaves it (test_torch_cli's entries): the run's log must still go to
+    its own log_dir."""
     pytest.importorskip("h5py")
     from parsenet_tpu.data.synthetic import write_spline_h5
+    from parsenet_tpu_torch.core.logging import setup_logging
+    setup_logging(str(tmp_path / "earlier"), "closed_splines")
     h5 = tmp_path / "closed.h5"
     write_spline_h5(str(h5), 16, num_points=64, grid=GRID, closed=True,
                     seed=1)

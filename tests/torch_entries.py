@@ -1,11 +1,12 @@
-"""One request of each of the port's four entry points, for the span
+"""One request of each of the port's five entry points, for the span
 tests: eval.pipeline.predict_segmentation and batch_metrics (a batch of
-shapes), train_seg.make_step_fns(...).train_step and train_e2e.
-make_e2e_step(...).train_step (one optimizer step). `request(entry, dev,
-n_points, k)` returns a callable that runs one request from the same
-start every call: the same shapes, draws and weights (the trainers'
-weights copied back and their optimizer's state dropped), so two calls
-make the same host synchronisations. Shapes from data.synthetic; the
+shapes), train_seg.make_step_fns(...).train_step, train_e2e.
+make_e2e_step(...).train_step and train_spline.make_fed_step(...) (one
+optimizer step). `request(entry, dev, n_points, k)` returns a callable
+that runs one request from the same start every call: the same shapes,
+draws and weights (the trainers' weights copied back and their
+optimizer's state dropped), so two calls make the same host
+synchronisations. Shapes and spline patches from data.synthetic; the
 shipped weights of params/ for the e2e network and the spline decoders."""
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E2E_WEIGHTS = os.path.join(ROOT, "params", "parsenet_e2e.npz")
 # each opens the span entry.<name> around a request or a step
 ENTRIES = ("predict_segmentation", "batch_metrics", "seg_train_step",
-           "e2e_train_step")
+           "e2e_train_step", "spline_train_step")
 
 
 def _shapes(batch: int, n_points: int, seed: int = 5):
@@ -59,6 +60,8 @@ def request(entry: str, dev: torch.device, n_points: int, k: int):
         return _seg_step(dev, n_points, k)
     if entry == "e2e_train_step":
         return _e2e_step(dev, n_points, k)
+    if entry == "spline_train_step":
+        return _spline_step(dev, n_points, k)
     raise ValueError(f"unknown entry {entry!r}")
 
 
@@ -115,6 +118,29 @@ def _e2e_step(dev, n_points, k):
              for _ in range(2)]
     return _from_the_start(model, opt, lambda: train_step(
         x, labels, prim, draws, 1e-4))
+
+
+def _spline_step(dev, n_points, k):
+    """The closed SplineNet's fed step on 2 patches of n_points, every
+    call from a fresh feed of the same batch and a fresh RandomState (the
+    trainer's kNN k is its own, 10)."""
+    import itertools
+    from parsenet_tpu_torch.core.config import Config
+    from parsenet_tpu_torch.data.splines import canon_batch
+    from parsenet_tpu_torch.data.synthetic import make_spline_batch
+    from parsenet_tpu_torch.train import train_spline
+    pts, cps = make_spline_batch(np.random.RandomState(5), 2, n_points,
+                                 closed=True)
+    batch = canon_batch(pts, cps, True, True)
+    model, opt, train_step, _ = train_spline.make_trainer(
+        Config(grid_size=20, seed=0, lr=1e-3), True, True, dev)
+
+    def step():
+        fed = train_spline.make_fed_step(
+            train_step, itertools.repeat(batch), np.random.RandomState(0),
+            (n_points,), dev)
+        return fed(1e-3, 0.9)
+    return _from_the_start(model, opt, step)
 
 
 def host_spans(prof) -> list:
