@@ -12,7 +12,7 @@ Phases, one line each (plus detail lines):
      C751x "wgmma serialized" note in either K1 library), the count of
      HGMMA (wgmma) instructions in the SASS of each instantiation of both
      tensor-core K1s (bf16 and 3xTF32): the fixed-count ones must keep
-     their 24 and 76, the early-exit ones must have some, and the
+     their 24 and 60, the early-exit ones must have some, and the
      instructions of K3's scan loop for each R, per (target, query) pair;
   3. kernel vs plain on the card at main-path shapes:
      K1 f32 (3xTF32 tensor-core kernel) at the 10,000 x 128 stream-a
@@ -210,7 +210,11 @@ Phases, one line each (plus detail lines):
      on every SM, a key tile's score product in each operand layout, its
      update, and both, 8,192 tiles against operands held in shared memory,
      each with its cycles a tile, shared-memory bytes an FMA, bytes a
-     clock an SM and share of the TF32 tensor rate;
+     clock an SM and share of the TF32 tensor rate (the fp16 lo.hi of
+     score_rs_f16 runs at twice that rate, so its share can pass 100%),
+     and the fixed-count K1 f32's clocks a tile (its 10,000 x 128 x 50
+     time at the probe's clock) with the probe's score_rs+update and
+     score_rs_f16+update as shares of it;
      K1 exit at 10,000 x 128 x 50, tol 1e-6, on the 8 stream-a embeddings in
      both modes beside tol = 0, with the iterations it runs as a share of
      50 (kernels.mean_shift_exit_counts), the fixed-count bound scaled by
@@ -1548,7 +1552,7 @@ def main():
         # per kernel: the fixed-count one keeps the count it had before the
         # early exit was added beside it; the exit (ms_exit_kernel) has some
         for kname, src, fixed in (("K1tc", "ms_iterations_tc.cu", 24),
-                                  ("K1", "ms_iterations_tf32.cu", 76)):
+                                  ("K1", "ms_iterations_tf32.cu", 60)):
             by_fn = sass_count_by_function(kernels._lib_path(kname), "HGMMA")
             tol0 = sum(v for f, v in by_fn.items()
                        if "ms_tc_kernel" in f or "ms_tf32_kernel" in f)
@@ -3322,6 +3326,24 @@ def main():
                   f"{100.0 * 2 * fma / cyc / TF32_FMA_CLOCK:.1f}% of the "
                   "TF32 tensor rate", flush=True)
         report["K1_f32_operand_probe"] = probe
+        # the fixed-count kernel's clocks a key tile beside the probe's:
+        # its units (a 128-row block against a 16-row tile) an SM over the
+        # 50 iterations, at the clock the probe ran at
+        k_ms = report["K1_f32_ms"][0]
+        upd = probe["update"]
+        ghz = upd["cycles_per_tile"] * PROBE_TILES / upd["ms"] / 1e6
+        units = (it * -(-n // kernels.MS_BLOCK_ROWS)
+                 * -(-n // kernels.MS_TF32_TILE) / sms)
+        k_cyc = k_ms * 1e6 * ghz / units
+        shares = {m: probe[f"score_{m}+update"]["cycles_per_tile"] / k_cyc
+                  for m in ("rs", "rs_f16")}
+        report["K1_f32_clocks_per_tile"] = {"clocks": k_cyc, "ghz": ghz,
+                                            "probe_share": shares}
+        print(f"  K1 f32 fixed-count 10000x128x50: {k_ms:.3f} ms, "
+              f"{k_cyc:.0f} clocks a tile at {ghz:.3f} GHz; the probe's "
+              f"score_rs+update is {100.0 * shares['rs']:.1f}% of it, "
+              f"score_rs_f16+update (its own layout) "
+              f"{100.0 * shares['rs_f16']:.1f}%", flush=True)
         # the tensor-core launch alone, without the wrapper's tiling and
         # allocations (the counters zeroed as the wrapper does)
         grid, slots = kernels.ms_plan(n, sms)

@@ -22,8 +22,9 @@
 // |a|; the tensor cores truncate it, an error of at most 2^-21 |a|), and a
 // product as hi.hi + hi.lo + lo.hi with f32 accumulation: three tensor-core
 // products where the bf16 kernel runs one. lo.lo (<= 2^-22 |a b|) is
-// dropped. S adds them as (hi.hi + lo.hi) + hi.lo (two accumulators), O
-// += P X as one chain.
+// dropped. S adds them as (hi.hi + lo.hi) + hi.lo (three accumulators, the
+// fixed-count kernel's lo.hi at the scale 2^40, below), O += P X as one
+// chain.
 //
 // Bound on this card: operations. One iteration is two N x N x 128
 // products, 4 N^2 D FLOP, tripled: 7.7e12 FLOP per 50-iteration call at
@@ -37,14 +38,16 @@
 // warp that keeps a ring of STAGES key tiles in flight with 1-D
 // cp.async.bulk copies, completion on mbarriers. The wrapper lays the keys
 // out once (kernels.ms_tiles_tf32) in 16-row tiles of 32 KB whose bytes are
-// already wgmma's 128-byte-swizzled canonical layout. Per key tile a
-// consumer runs
-//   S = m . X_t^T  16 x (RS-wgmma m64n32k8: m hi from registers against the
+// already wgmma's 128-byte-swizzled canonical layout, and the tiles' hi
+// rows once more in fp16 (kernels.ms_tiles_hi16, 4 KB a tile). Per key
+// tile a consumer runs
+//   S = m . X_t^T  16 x RS-wgmma m64n32k8 (m hi from registers against the
 //                  tile's hi and lo rows as one 32-row operand, so hi.hi and
-//                  hi.lo in one product; SS-wgmma m64n16k8: m lo from shared
-//                  memory against the hi rows, lo.hi), 16 k-steps,
-//   P = ex2((s - 1) c), c = 2 inv2b2 log2(e): one FADD folding the n32
-//                  product's two halves, one FFMA + one MUFU a score,
+//                  hi.lo in one product) + 8 x RS-wgmma m64n16k16 (m lo from
+//                  registers as fp16 pairs against the fp16 hi rows, lo.hi,
+//                  in an accumulator of its own), 16 k-steps of 8 features,
+//   P = ex2((s - 1) c), c = 2 inv2b2 log2(e): an FFMA and an FADD folding
+//                  the three sums, one FFMA + one MUFU a score,
 //                  the f32 row sums kept per thread, masked in the last tile,
 //                  P split into hi and lo tf32 A fragments in registers,
 //   O += P . X_t   6 x RS-wgmma m64n128k8 (2 k-steps x 3 products),
@@ -60,15 +63,46 @@
 // Shared-memory operand bytes, the limit of this design. A wgmma waits for
 // its operands: at the SM's 128 bytes a clock, an SS m64n16k8 (A 2 KB, B
 // 0.5 KB) takes 20 clocks for 8 clocks of TF32 work, an SS m64n32k8 24 for
-// 16, an RS m64n32k8 (B 1 KB) 8 for 16. Per key tile a consumer reads
-// 16 x (1 KB + 2.5 KB) = 56 KB for S and 6 x 4 KB = 24 KB for O, 160 KB a
-// block; m hi from shared memory (the exit's form) makes it 224 KB, and
-// three SS m64n16k8 a k-step (m hi read twice) 288 KB. The operand probe
-// (below; chip_smoke.py phase 6) times each layout's products alone on an
-// H100: a tile's S and O take 1,920 clocks an SM with m hi from registers,
-// 2,146 from shared memory, 2,646 in three m64n16k8 a k-step, against
-// 1,536 of TF32 work (PERF.md §6). m lo stays in shared memory: with it in
-// registers too (128 a thread beside O's 64) the consumers would spill.
+// 16, an RS m64n32k8 (B 1 KB) 8 for 16, an RS fp16 m64n16k16 (B 0.5 KB) 4
+// for 8. Per key tile a consumer reads 16 x 1 KB + 8 x 0.5 KB = 20 KB for
+// S and 6 x 4 KB = 24 KB for O, 88 KB a block; m lo from shared memory (an
+// SS m64n16k8 for lo.hi) makes it 160 KB, m hi too (the exit's form) 224
+// KB. The operand probe (below; chip_smoke.py phase 6) times each layout's
+// products alone on an H100 (PERF.md §6): a tile's S and O took 1,920
+// clocks an SM with m lo from shared memory, 1,696 with m lo as tf32 A
+// fragments, 1,488 as this kernel's fp16 ones, 2,146 with m hi from shared
+// memory too, against 1,536 of TF32 work.
+//
+// m lo in registers: two ways were open, (a) m lo held packed, two values
+// a register, or (b) m lo whole as tf32 fragments, with more registers for
+// the consumers. (a) is taken. An RS-wgmma reads its A registers until it
+// retires, so an unpacked copy would be live from the score product's
+// issue to its wait: m lo as tf32 fragments takes 64 registers there,
+// packed and unpacked 96. (b) spilled beside O (64), m hi (64), S (16) and
+// P (16), at 232 registers and at 240 with the producer at 24 (ptxas: 128
+// and 96 bytes, every wgmma serialized, C7512), and the kernel took
+// 37.8-39.8 ms. So the packed pairs are the operand: m lo as fp16 A
+// fragments (32 registers) of an fp16 product against the tile's hi rows
+// in fp16. The two products read the values the 3xTF32 lo.hi reads:
+// - m lo: |lo| <= 2^-11 |m| <= 2^-11 (unit rows), held as lo 2^26
+//   (<= 2^15, under fp16's 65,504) converted toward zero (cvt.rz): 10
+//   mantissa bits, the tf32 truncation the tensor cores apply to lo, for
+//   |lo| >= 2^-40 (fp16's normal range); below, fp16's subnormals keep lo
+//   to within 2^-50 (0 below 2^-50).
+// - x hi: 11 significant bits (cvt.rna), held as hi 2^14 (|x| < 4 keeps it
+//   finite) in fp16, exact for |hi| >= 2^-28; below, within 2^-39.
+// So a term lo hi is read to within 2^-50 + 2^-11 2^-39 = 2^-49, and S over
+// the 128 features to within 2^-42, where 3xTF32 already drops lo.lo, up
+// to 2^-22 |m_i x_i| a term (2^-22 over a unit row's S), and f32 rounds S
+// at 2^-24: 2^-42 is 2^-20 of the dropped term. The product sums at
+// 2^(26 + 14) = 2^40 in an accumulator of its own (8 registers), which the
+// fold's FFMA scales back (exact: a power of two). Into the n32 product's
+// hi.lo columns instead (with the tiles' lo rows scaled to match), ptxas
+// serialized every wgmma (C7511); into its hi.hi columns (timed with the
+// scales unmatched) a tile took 1,999 clocks against 1,859 (PERF.md §6),
+// each fp16 product behind the n32 one on the same accumulator.
+// fp16's product runs at twice TF32's rate, so lo.hi takes half its
+// clocks: the 3xTF32 work of a tile is 1,408 clocks an SM, 1,536 before.
 //
 // Where it differs from the bf16 kernel, and why:
 // - wgmma reads 32-bit (tf32) operands only K-major: it transposes 16-bit
@@ -79,31 +113,38 @@
 //   rows (K = rows contiguous), for the update, as hi and lo. The
 //   transposed half packs the 16 rows' hi and lo into one 128-byte row of
 //   32 values, so both halves use the 128-byte swizzle (16-byte chunk j of
-//   a 128-byte row r stored at chunk j ^ (r % 8)).
-// - P and m hi are A operands from registers. A tf32 A fragment holds
-//   columns k and k + 4 of a k-step (rows r, r + 8), while the S
+//   a 128-byte row r stored at chunk j ^ (r % 8)). The fp16 hi rows are 16
+//   rows of 128 features, two 64-feature blocks of 16 x 128 bytes in the
+//   same swizzle.
+// - P, m hi and m lo are A operands from registers. A tf32 A fragment
+//   holds columns k and k + 4 of a k-step (rows r, r + 8), while the S
 //   accumulator hands a thread columns 2k and 2k + 1. So the wrapper
 //   stores the 8 rows of each k-step in the transposed half in the order
 //   0, 2, 4, 6, 1, 3, 5, 7: slot k of the k-step holds the key row that the
 //   thread's P value at slot k multiplies, and no shuffle is needed. m hi
 //   goes through shared memory once a segment instead: store_m writes it in
-//   the fragments' thread order and each thread loads its 64 values.
+//   the fragments' thread order and each thread loads its 64 values. An
+//   fp16 A fragment holds columns 2k, 2k + 1 (and 2k + 8, 2k + 9) of the
+//   thread's rows, the accumulator's own, so each thread packs m lo from
+//   its own values; it passes through shared memory beside m hi.
 // - Shared memory. An f32 tile is twice a bf16 tile and hi + lo doubles it
-//   again: m as hi + lo is 64 KB a consumer (128 KB a block), a 16-row key
-//   tile 32 KB, three stages 96 KB: 230,448 bytes of the 232,448 a block
-//   can have. A block whose units span two row blocks (the exchange grid)
-//   cannot keep both row blocks' m, as the bf16 kernel does: the second
-//   row block's new m goes to a workspace in L2 in thread order (each
-//   thread reads back what it wrote) and is split into shared memory again
-//   before that row block's tiles, once an iteration. The first
-//   iteration's m is read from the f32 queries directly.
-// - Registers. O is 64 x 128 f32, 64 registers a thread; m hi 64, S of a
-//   16-row tile 16, its fold 8, P's hi and lo fragments 16. ptxas's
-//   C751x notes ("wgmma serialized") would mean a register of an
-//   unfinished wgmma is written, or too few registers for the pipeline: P
-//   is split only after the update that reads the previous fragments
-//   retired, as in the bf16 kernel, and the exponentials run on the fold,
-//   never in the n32 accumulator.
+//   again: m as hi + lo fragments is 48 KB a consumer (96 KB a block), a
+//   16-row key tile 32 KB and its fp16 hi rows 4 KB, three stages 108 KB:
+//   209,968 bytes of the 232,448 a block can have (the exit keeps m as
+//   swizzled tf32 hi and lo, 64 KB a consumer). A block whose units span
+//   two row blocks (the exchange grid) cannot keep both row blocks' m, as
+//   the bf16 kernel does: the second row block's new m goes to a workspace
+//   in L2 in thread order (each thread reads back what it wrote) and is
+//   split into shared memory again before that row block's tiles, once an
+//   iteration. The first iteration's m is read from the f32 queries
+//   directly.
+// - Registers. O is 64 x 128 f32, 64 registers a thread; m hi 64, m lo
+//   32, S of a 16-row tile 16 + 8 (lo.hi), its fold 8, P's hi and lo
+//   fragments 16: 208 of the consumers' 232. ptxas's C751x notes ("wgmma serialized") would
+//   mean a register of an unfinished wgmma is written, or too few
+//   registers for the pipeline: P is split only after the update that
+//   reads the previous fragments retired, as in the bf16 kernel, and the
+//   exponentials run on the fold, never in the n32 accumulator.
 // - Exponentials: ex2.approx.ftz with the FFMA pre-scale, within a few ulp
 //   of expf; columns >= nk are exactly 0, as in expf's masked version.
 // A wait that never ends traps instead of hanging the card.
@@ -111,8 +152,9 @@
 // K1's early exit (tol > 0; the TPU kernel's early_exit=True variant,
 // _make_ms_multi_kernel :165-180, chosen at :213) is ms_exit.cuh's kernel
 // (shared with the bf16 kernel) on this source's tile pipeline
-// (segment_tiles) and m operand (store_m), with m hi read from shared
-// memory (the n32 product's SS form); the delta is taken on the f32 m
+// (segment_tiles) and m operand (store_m), with m hi and lo read from
+// shared memory as tf32 (the SS form: its consumers, which also hold the
+// exit's plan, spill with m in registers); the delta is taken on the f32 m
 // before it is split into hi and lo.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,14 +177,26 @@ constexpr uint32_t M_KBLK = MTILE * 128;        // 32 columns of m's 64 rows
 constexpr uint32_t X_KBLK = 2 * TILE * 128;
 constexpr uint32_t X_TRANS = 4 * X_KBLK;        // offset of the transposed half
 constexpr uint32_t TILE_BYTES = 2 * X_TRANS;    // 32 KB
-constexpr uint32_t M_WG_BYTES = 2 * M_HALF;     // a consumer's m, hi and lo
+constexpr uint32_t X16_KBLK = TILE * 128;       // 64 features of the fp16 hi rows
+constexpr uint32_t X16_BYTES = 2 * X16_KBLK;    // a tile's fp16 hi rows: 4 KB
+constexpr uint32_t M_WG_BYTES = 2 * M_HALF;     // a consumer's m, hi and lo (exit)
+constexpr uint32_t M_LO16 = MTILE * D * 2;      // m lo as fp16 fragments: 16 KB
+constexpr uint32_t M_REGS_WG_BYTES = M_HALF + M_LO16;
+// m lo is held as lo 2^LO16_SHIFT in fp16 and the tiles' hi rows as hi
+// 2^HI16_SHIFT (kernels.ms_tiles_hi16, MS_HI16_SHIFT), so lo.hi sums at
+// 2^(LO16_SHIFT + HI16_SHIFT)
+constexpr int LO16_SHIFT = 26;
+constexpr int HI16_SHIFT = 14;
+constexpr float LO16_SCALE = (float)(1ull << LO16_SHIFT);
+constexpr float LO_UNSCALE = 1.0f / (float)(1ull << (LO16_SHIFT + HI16_SHIFT));
 // a block's partial O and row sums in the workspace, per consumer: 16
 // float4 and 2 floats per thread, each array in thread order
 constexpr int PART_FLOATS = CONSUMERS * (MTILE * D + 2 * 128);
 constexpr int SPILL_FLOATS = CONSUMERS * MTILE * D;  // a block's spilled m
-// [m hi, lo of each consumer][key ring][full][empty]
-constexpr size_t SMEM_BYTES = 1024 + CONSUMERS * 2 * M_HALF
-                            + STAGES * TILE_BYTES + 8 * (2 * STAGES);
+// [m hi, lo of each consumer][key ring][fp16 hi ring][full][empty]
+constexpr size_t SMEM_BYTES = 1024 + CONSUMERS * M_REGS_WG_BYTES
+                            + STAGES * (TILE_BYTES + X16_BYTES)
+                            + 8 * (2 * STAGES);
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -318,6 +372,23 @@ __device__ __forceinline__ void mma_rs_n16(float (&d)[8], uint32_t a0,
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d[64 x 16] (+)= A[64 x 16] B[16 x 16], fp16 (f32 accumulation), A from
+// registers (fp16 pairs), B K-major from shared memory.
+__device__ __forceinline__ void mma_rs_f16_n16(float (&d)[8], uint32_t a0,
+                                               uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint64_t db,
+                                               int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+        "0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
 // The first 8 of an n32 accumulator's registers: its columns 0-15, the
 // registers an n16 product of the same rows accumulates into.
 __device__ __forceinline__ float (&low_cols(float (&d)[16]))[8] {
@@ -368,6 +439,16 @@ __device__ __forceinline__ uint32_t tf32_hi(float v) {
     return r;
 }
 
+// m lo of two adjacent columns as an fp16 pair, a (the lower column) in
+// the low half: lo 2^LO16_SHIFT rounded toward zero, the tf32 truncation
+// the tensor cores would apply to lo (the header bounds fp16's subnormals)
+__device__ __forceinline__ uint32_t pack_lo16(float a, float b) {
+    uint32_t r;
+    asm("cvt.rz.f16x2.f32 %0, %1, %2;"
+        : "=r"(r) : "f"(b * LO16_SCALE), "f"(a * LO16_SCALE));
+    return r;
+}
+
 __device__ __forceinline__ float quad_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
@@ -382,48 +463,68 @@ __device__ __forceinline__ void consumers_barrier() {
     asm volatile("bar.sync 3, %0;" :: "n"(CONSUMERS * 128) : "memory");
 }
 
-// Where the score product reads m hi from: registers (the fixed-count
-// kernel: an RS-wgmma, which reads no A operand from shared memory), or
-// shared memory (the exit, whose consumers cannot hold m hi's 64 more
-// registers beside its plan without spilling).
-enum MHi { M_HI_REGS, M_HI_SMEM };
+// Where the score product reads m from: registers (the fixed-count
+// kernel: m hi as tf32 and m lo as fp16 A fragments of RS-wgmmas, which
+// read no A operand from shared memory), or shared memory (the exit, whose
+// consumers cannot hold m's 96 registers beside its plan without
+// spilling).
+enum MForm { M_REGS, M_SMEM };
 
 // The scores of a tile over D = 128, 16 k-steps of 8 through the four
 // 32-column blocks of the swizzled key tile: m hi against the block's 32
 // rows (the tile's hi, then its lo) in one m64n32k8, so that s[0..7] (its
-// columns 0-15) take hi.hi and s[8..15] (columns 16-31) hi.lo, and m lo
-// (shared memory) against the hi rows in one m64n16k8 into s[0..7]
-// (lo.hi). m hi comes from `mh` (M_HI_REGS) or from shared memory at m,
-// where it is read once for the two products it takes part in.
-template <MHi MH>
-__device__ __forceinline__ void issue_scores(float (&s)[16],
+// columns 0-15) take hi.hi and s[8..15] (columns 16-31) hi.lo. M_REGS: m
+// hi from `mh`, and m lo (`ml`, fp16 2^26) against the fp16 hi rows
+// (2^14) at `x16` in one m64n16k16 every two k-steps into sl (lo.hi
+// 2^40). M_SMEM: m hi from shared memory at m, read once for the two
+// products it takes part in, and m lo (tf32) against the hi rows in one
+// m64n16k8 a k-step into s[0..7] (lo.hi).
+template <MForm MF>
+__device__ __forceinline__ void issue_scores(float (&s)[16], float (&sl)[8],
                                              const uint32_t (&mh)[64],
-                                             uint32_t m, uint32_t xs) {
+                                             const uint32_t (&ml)[32],
+                                             uint32_t m, uint32_t xs,
+                                             uint32_t x16) {
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
         const uint32_t om = (k >> 2) * M_KBLK + (k & 3) * 32;
         const uint64_t x = smem_desc(xs + (k >> 2) * X_KBLK + (k & 3) * 32);
-        if constexpr (MH == M_HI_REGS)
+        if constexpr (MF == M_REGS) {
             mma_rs_n32(s, mh[4 * k], mh[4 * k + 1], mh[4 * k + 2],
                        mh[4 * k + 3], x, k > 0);
-        else
+            if (k & 1) {   // features 16 (k / 2) .. + 15
+                const int kk = k >> 1;
+                mma_rs_f16_n16(sl, ml[4 * kk], ml[4 * kk + 1],
+                               ml[4 * kk + 2], ml[4 * kk + 3],
+                               smem_desc(x16 + (kk >> 2) * X16_KBLK
+                                         + (kk & 3) * 32), kk > 0);
+            }
+        } else {
             mma_ss_n32(s, smem_desc(m + om), x, k > 0);
-        mma_ss_n16(low_cols(s), smem_desc(m + M_HALF + om), x, 1);
+            mma_ss_n16(low_cols(s), smem_desc(m + M_HALF + om), x, 1);
+        }
     }
 }
 
 // S = (hi.hi + lo.hi) + hi.lo into p: s[i] and s[8 + i] hold one key's
-// columns. p is apart from s: the exponentials written into the retired
-// n32 accumulator made ptxas serialize every wgmma (C7511).
+// columns, and (M_REGS) sl[i] its lo.hi 2^40. p is apart from s: the
+// exponentials written into the retired n32 accumulator made ptxas
+// serialize every wgmma (C7511).
+template <MForm MF>
 __device__ __forceinline__ void fold_scores(float (&p)[8],
-                                            const float (&s)[16]) {
+                                            const float (&s)[16],
+                                            const float (&sl)[8]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = s[i] + s[8 + i];
+    for (int i = 0; i < 8; ++i)
+        p[i] = (MF == M_REGS ? fmaf(sl[i], LO_UNSCALE, s[i]) : s[i])
+             + s[8 + i];
 }
 
-// This thread's tf32 A fragments of m hi for the 16 k-steps (a float4
-// each, in the thread order store_m<M_HI_REGS> writes), into registers.
-__device__ __forceinline__ void load_m_hi(uint32_t (&mh)[64], uint32_t m) {
+// This thread's A fragments of m, in the thread order store_m<M_REGS>
+// writes, into registers: m hi's tf32 ones for the 16 k-steps and m lo's
+// fp16 ones for the 8 of 16 features (a 16-byte vector each).
+__device__ __forceinline__ void load_m(uint32_t (&mh)[64], uint32_t (&ml)[32],
+                                       uint32_t m) {
     const uint32_t mine = m + (threadIdx.x % 128) * 16;
 #pragma unroll
     for (int k = 0; k < 16; ++k)
@@ -431,6 +532,12 @@ __device__ __forceinline__ void load_m_hi(uint32_t (&mh)[64], uint32_t m) {
                      : "=r"(mh[4 * k]), "=r"(mh[4 * k + 1]),
                        "=r"(mh[4 * k + 2]), "=r"(mh[4 * k + 3])
                      : "r"(mine + k * 128 * 16) : "memory");
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(ml[4 * k]), "=r"(ml[4 * k + 1]),
+                       "=r"(ml[4 * k + 2]), "=r"(ml[4 * k + 3])
+                     : "r"(mine + M_HALF + k * 128 * 16) : "memory");
 }
 
 // O += P . X_t over the tile's 16 rows: 2 k-steps of 8 rows, the
@@ -496,9 +603,8 @@ __device__ __forceinline__ void split_tile(const float (&s)[8],
     }
 }
 
-// Byte offset of element (row, col) in a consumer's swizzled m (lo, M_HALF
-// on; hi here in M_HI_SMEM's layout): four 32-column blocks of 64 rows x
-// 128 bytes.
+// Byte offset of element (row, col) in a consumer's swizzled m (M_SMEM's
+// hi, and its lo M_HALF on): four 32-column blocks of 64 rows x 128 bytes.
 __device__ __forceinline__ uint32_t m_offset(int row, int col) {
     return (col >> 5) * M_KBLK + row * 128
          + ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
@@ -506,28 +612,36 @@ __device__ __forceinline__ uint32_t m_offset(int row, int col) {
 
 // This thread's values of m (rows r, r + 8; columns 8 j + 2 q, + 1 in
 // v[4 j .. 4 j + 3], the accumulator layout) into the consumer's m in
-// shared memory as hi and lo, visible to wgmma (the async proxy)
-// afterwards. lo, and hi for M_HI_SMEM, in the swizzled K-major layout;
-// hi for M_HI_REGS as the A fragments of the 16 k-steps in thread order,
-// a float4 a thread a k-step: element (R, C) is slot (R % 16) / 8 +
-// 2 ((C % 8) / 4) of k-step C / 8 of the thread of R's quad whose lane % 4
-// is C % 4 (load_m_hi).
-template <MHi MH = M_HI_SMEM>
+// shared memory as hi and lo. M_SMEM: both in the swizzled K-major layout,
+// visible to wgmma (the async proxy) afterwards. M_REGS: the A fragments
+// in thread order, 16 bytes a thread a k-step: hi's of the 16 tf32
+// k-steps, element (R, C) in slot (R % 16) / 8 + 2 ((C % 8) / 4) of k-step
+// C / 8 of the thread of R's quad whose lane % 4 is C % 4; then, M_HALF
+// on, lo's of the 8 fp16 k-steps, each thread's own values, word w the
+// pair v[2 w], v[2 w + 1] (load_m).
+template <MForm MF = M_SMEM>
 __device__ __forceinline__ void store_m(const float (&v)[64], uint32_t m,
                                        int r, int q, int wg) {
     wg_barrier(1 + wg);   // every wgmma of this warpgroup has read the old m
     const uint32_t quad = (threadIdx.x % 128) & ~3u;
+    const uint32_t mine = m + M_HALF + (threadIdx.x % 128) * 16;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
         const int col = 8 * j + 2 * q;
+        uint32_t lo16[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const uint32_t off = m_offset(r + 8 * h, col);
             const float a = v[4 * j + 2 * h], b = v[4 * j + 2 * h + 1];
             const uint32_t ha = tf32_hi(a), hb = tf32_hi(b);
-            if constexpr (MH == M_HI_SMEM) {
+            const float la = a - __uint_as_float(ha);
+            const float lb = b - __uint_as_float(hb);
+            if constexpr (MF == M_SMEM) {
                 asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
                              :: "r"(m + off), "r"(ha), "r"(hb) : "memory");
+                asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
+                             :: "r"(m + M_HALF + off), "r"(__float_as_uint(la)),
+                                "r"(__float_as_uint(lb)) : "memory");
             } else {
                 // column col + h of rows r and r + 8: slots 2 (q / 2) and
                 // 2 (q / 2) + 1 of its thread's fragment
@@ -536,13 +650,13 @@ __device__ __forceinline__ void store_m(const float (&v)[64], uint32_t m,
                              :: "r"(m + (j * 128 + t) * 16 + (q >> 1) * 8),
                                 "r"(tf32_hi(v[4 * j + h])),
                                 "r"(tf32_hi(v[4 * j + 2 + h])) : "memory");
+                lo16[h] = pack_lo16(la, lb);
             }
-            asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
-                         :: "r"(m + M_HALF + off),
-                            "r"(__float_as_uint(a - __uint_as_float(ha))),
-                            "r"(__float_as_uint(b - __uint_as_float(hb)))
-                         : "memory");
         }
+        if constexpr (MF == M_REGS)   // words 2 j, 2 j + 1
+            asm volatile("st.shared.v2.b32 [%0], {%1, %2};"
+                         :: "r"(mine + (j >> 1) * 128 * 16 + (j & 1) * 8),
+                            "r"(lo16[0]), "r"(lo16[1]) : "memory");
     }
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     wg_barrier(1 + wg);
@@ -616,7 +730,7 @@ __device__ __forceinline__ void store_rows(const float (&o)[64], Dest dest,
                                            int row0, int nq, int r, int q,
                                            int wg, int tid) {
     if (dest == TO_SMEM) {
-        store_m<M_HI_REGS>(o, m_smem, r, q, wg);
+        store_m<M_REGS>(o, m_smem, r, q, wg);
     } else if (dest == TO_SPILL) {
         float* sp = spill + wg * MTILE * D + tid * 4;
 #pragma unroll
@@ -696,16 +810,17 @@ __device__ __forceinline__ void load_sums(float (&o)[64], const float* sums) {
 // tile's ring slot given back to the producer. A software pipeline: the
 // scores of the next tile are issued with the update of this one, and
 // their exponentials run while the tensor cores do the update; they are
-// split into the next A fragments only after the update retired. MH: m hi
-// from registers, loaded once (store_m<M_HI_REGS>'s layout), or from
-// shared memory. CHAINS (the early exit): o is added into `sums` and
+// split into the next A fragments only after the update retired. MF: m
+// from registers, loaded once (store_m<M_REGS>'s layout), with the fp16 hi
+// rows' ring at x16_smem, or from shared memory. CHAINS (the early exit): o is added into `sums` and
 // zeroed after the last tile of each aligned group of EXIT_CHAIN, and at
 // the end, where it is loaded back: o holds the sums on return. (A loop
 // over chains around the pipeline instead spills: ptxas, 220 bytes.)
-template <bool CHAINS, MHi MH>
+template <bool CHAINS, MForm MF>
 __device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
                                               float& rs1, uint32_t my_m,
                                               uint32_t x_smem,
+                                              uint32_t x16_smem,
                                               uint32_t full_bar,
                                               uint32_t empty_bar, int& stage,
                                               uint32_t& phase, int t0, int t1,
@@ -720,19 +835,22 @@ __device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
     rs0 = 0.f;   // row sums of rows r, r + 8
     rs1 = 0.f;
     bool fresh = true;   // CHAINS: no chain has reached `sums` yet
-    float s[16], p[8];
-    uint32_t ph[8], pl[8], mh[64];
-    if constexpr (MH == M_HI_REGS) {
-        load_m_hi(mh, my_m);
+    float s[16], sl[8], p[8];
+    uint32_t ph[8], pl[8], mh[64], ml[32];
+    if constexpr (MF == M_REGS) {
+        load_m(mh, ml, my_m);
         reg_fence(mh);
+        reg_fence(ml);
     }
     mbar_wait(full_bar + 8 * stage, phase);
     wg_fence();
-    issue_scores<MH>(s, mh, my_m, x_smem + stage * TILE_BYTES);
+    issue_scores<MF>(s, sl, mh, ml, my_m, x_smem + stage * TILE_BYTES,
+                     x16_smem + stage * X16_BYTES);
     wg_commit();
     wg_wait<0>();
     reg_fence(s);
-    fold_scores(p, s);
+    if constexpr (MF == M_REGS) reg_fence(sl);
+    fold_scores<MF>(p, s, sl);
     exp_tile(p, rs0, rs1, t0, nk, q, c);
     split_tile(p, ph, pl);
     for (int t = t0; t + 1 < t1; ++t) {
@@ -743,13 +861,15 @@ __device__ __forceinline__ void segment_tiles(float (&o)[64], float& rs0,
         reg_fence(pl);
         reg_fence(o);
         wg_fence();   // every register write lands before wgmma
-        issue_scores<MH>(s, mh, my_m, x_smem + stage * TILE_BYTES);
+        issue_scores<MF>(s, sl, mh, ml, my_m, x_smem + stage * TILE_BYTES,
+                         x16_smem + stage * X16_BYTES);
         wg_commit();
         issue_update(o, ph, pl, x_smem + cur * TILE_BYTES);
         wg_commit();
         wg_wait<1>();   // the scores; the update may still run
         reg_fence(s);
-        fold_scores(p, s);
+        if constexpr (MF == M_REGS) reg_fence(sl);
+        fold_scores<MF>(p, s, sl);
         exp_tile(p, rs0, rs1, t + 1, nk, q, c);
         wg_wait<0>();
         reg_fence(o);
@@ -796,16 +916,16 @@ __device__ __forceinline__ void exit_tiles(float (&o)[64], float& rs0,
                                            uint32_t& phase, int t0, int t1,
                                            int n, int q, float c, int lane,
                                            float* sums) {
-    segment_tiles<true, M_HI_SMEM>(o, rs0, rs1, my_m, x_smem, full_bar,
-                                   empty_bar, stage, phase, t0, t1, n, q, c,
-                                   lane, sums);
+    segment_tiles<true, M_SMEM>(o, rs0, rs1, my_m, x_smem, 0, full_bar,
+                                empty_bar, stage, phase, t0, t1, n, q, c,
+                                lane, sums);
 }
 
 #include "ms_exit.cuh"
 
 __global__ void __launch_bounds__(THREADS, 1)
 ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
-               float* __restrict__ out, const float* __restrict__ inv2b2_ptr,
+               const uint8_t* __restrict__ x16, float* __restrict__ out, const float* __restrict__ inv2b2_ptr,
                float* __restrict__ ws, unsigned* __restrict__ counters,
                int nq, int nk, int n_tiles, int n_blocks, int iterations,
                int slots) {
@@ -813,8 +933,9 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
     // tiles 1024-byte aligned, as the 128-byte swizzle requires
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t m_smem = base;
-    const uint32_t x_smem = base + CONSUMERS * 2 * M_HALF;
-    const uint32_t full_bar = x_smem + STAGES * TILE_BYTES;
+    const uint32_t x_smem = base + CONSUMERS * M_REGS_WG_BYTES;
+    const uint32_t x16_smem = x_smem + STAGES * TILE_BYTES;
+    const uint32_t full_bar = x16_smem + STAGES * X16_BYTES;
     const uint32_t empty_bar = full_bar + 8 * STAGES;
     const int wg = threadIdx.x / 128;
     const int tid = threadIdx.x % 128;
@@ -859,9 +980,13 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                     const Segment sg = k ? seg1 : seg0;
                     for (int t = sg.t0; t < sg.t1; ++t) {
                         mbar_wait(empty_bar + 8 * stage, phase ^ 1);
-                        mbar_expect_tx(full_bar + 8 * stage, TILE_BYTES);
+                        mbar_expect_tx(full_bar + 8 * stage,
+                                       TILE_BYTES + X16_BYTES);
                         bulk_load(x_smem + stage * TILE_BYTES,
                                   xt + (size_t)t * TILE_BYTES, TILE_BYTES,
+                                  full_bar + 8 * stage);
+                        bulk_load(x16_smem + stage * X16_BYTES,
+                                  x16 + (size_t)t * X16_BYTES, X16_BYTES,
                                   full_bar + 8 * stage);
                         if (++stage == STAGES) { stage = 0; phase ^= 1; }
                     }
@@ -877,7 +1002,7 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
         const int r = warp * 16 + lane / 4;   // this thread's rows r, r + 8
         const int q = lane % 4;               // its column pairs 8 j + 2 q
         const float c = 2.f * (*inv2b2_ptr) * 1.4426950408889634f;
-        const uint32_t my_m = m_smem + wg * 2 * M_HALF;
+        const uint32_t my_m = m_smem + wg * M_REGS_WG_BYTES;
         // this thread's floats in a workspace partial
         const int part_o = wg * (MTILE * D + 2 * 128) + tid * 4;
         const int part_rs = wg * (MTILE * D + 2 * 128) + MTILE * D + tid;
@@ -898,7 +1023,7 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                 float o[64];
                 if (it == 0) {          // m0: the queries themselves
                     load_rows(o, qrows, row0, nq, r, q);
-                    store_m<M_HI_REGS>(o, my_m, r, q, wg);
+                    store_m<M_REGS>(o, my_m, r, q, wg);
                 } else if (k == 1) {    // m of the second row block
                     const float* sp = spill + wg * MTILE * D + tid * 4;
 #pragma unroll
@@ -908,13 +1033,13 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
                         o[4 * i] = v.x; o[4 * i + 1] = v.y;
                         o[4 * i + 2] = v.z; o[4 * i + 3] = v.w;
                     }
-                    store_m<M_HI_REGS>(o, my_m, r, q, wg);
+                    store_m<M_REGS>(o, my_m, r, q, wg);
                 }
                 float rs0, rs1;
-                segment_tiles<false, M_HI_REGS>(o, rs0, rs1, my_m, x_smem,
-                                                full_bar, empty_bar, stage,
-                                                phase, sg.t0, sg.t1, nk, q, c,
-                                                lane);
+                segment_tiles<false, M_REGS>(o, rs0, rs1, my_m, x_smem,
+                                             x16_smem, full_bar, empty_bar,
+                                             stage, phase, sg.t0, sg.t1, nk,
+                                             q, c, lane);
                 if (sg.contrib == 1) {   // then this is the only segment
                     finish_rows(o, rs0, rs1, last ? TO_OUT : TO_SMEM, my_m,
                                 spill, out, row0, nq, r, q, wg, tid);
@@ -982,13 +1107,16 @@ ms_tf32_kernel(const float* __restrict__ qrows, const uint8_t* __restrict__ xt,
 //                hi and lo rows as two operands (m hi read twice a k-step);
 //   PROBE_N32    16 SS m64n32k8 (m hi against the tile's hi and lo rows as
 //                one operand) + 16 SS m64n16k8 (m lo against hi): the exit;
-//   PROBE_RS_HI  PROBE_N32 with m hi from registers: the fixed-count kernel;
-//   PROBE_RS     PROBE_N32 with m hi and lo from registers;
+//   PROBE_RS_HI  PROBE_N32 with m hi from registers;
+//   PROBE_RS     PROBE_N32 with m hi and lo from registers, as tf32;
+//   PROBE_RS_F16 PROBE_RS_HI with m lo as fp16 pairs from registers against
+//                the fp16 hi rows, 8 RS m64n16k16: the fixed-count kernel;
 // with UPDATE, the update's 6 RS m64n128k8 (issue_update) follow, as in
 // the kernel.
-enum ProbeScore { PROBE_NONE, PROBE_SS3, PROBE_N32, PROBE_RS_HI, PROBE_RS };
+enum ProbeScore { PROBE_NONE, PROBE_SS3, PROBE_N32, PROBE_RS_HI, PROBE_RS,
+                  PROBE_RS_F16 };
 constexpr size_t PROBE_SMEM_BYTES = 1024 + CONSUMERS * M_WG_BYTES
-                                  + TILE_BYTES;
+                                  + TILE_BYTES + X16_BYTES;
 
 template <int SCORE, bool UPDATE>
 __global__ void __launch_bounds__(CONSUMERS * 128, 1)
@@ -1006,11 +1134,15 @@ operand_probe_kernel(long long* __restrict__ cycles, int tiles) {
     __syncthreads();
     const uint32_t m_base = base + wg * M_WG_BYTES;
     const uint32_t x_base = base + CONSUMERS * M_WG_BYTES;
-    constexpr bool HI_REGS = SCORE == PROBE_RS_HI || SCORE == PROBE_RS;
-    float s[16], o[64];
+    const uint32_t x16_base = x_base + TILE_BYTES;
+    constexpr bool HI_REGS = SCORE == PROBE_RS_HI || SCORE == PROBE_RS
+                         || SCORE == PROBE_RS_F16;
+    float s[16], sl[8], o[64];
     uint32_t ph[8], pl[8], mh[64], ml[64];
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sl[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
         o[i] = 0.f;
@@ -1029,9 +1161,11 @@ operand_probe_kernel(long long* __restrict__ cycles, int tiles) {
         uint32_t xs = x_base, m = m_base;
         asm volatile("" : "+r"(xs), "+r"(m));
         reg_fence(s);
+        reg_fence(sl);
         if constexpr (UPDATE) reg_fence(o);
         if constexpr (HI_REGS) reg_fence(mh);
-        if constexpr (SCORE == PROBE_RS) reg_fence(ml);
+        if constexpr (SCORE == PROBE_RS || SCORE == PROBE_RS_F16)
+            reg_fence(ml);
         wg_fence();
 #pragma unroll
         for (int k = 0; k < 16; ++k) {
@@ -1055,18 +1189,28 @@ operand_probe_kernel(long long* __restrict__ cycles, int tiles) {
             if constexpr (SCORE == PROBE_RS)
                 mma_rs_n16(low_cols(s), ml[4 * k], ml[4 * k + 1],
                            ml[4 * k + 2], ml[4 * k + 3], x);
+            if constexpr (SCORE == PROBE_RS_F16) {
+                if (k & 1) {
+                    const int kk = k >> 1;
+                    mma_rs_f16_n16(sl, ml[4 * kk], ml[4 * kk + 1],
+                                   ml[4 * kk + 2], ml[4 * kk + 3],
+                                   smem_desc(x16_base + (kk >> 2) * X16_KBLK
+                                             + (kk & 3) * 32), kk > 0);
+                }
+            }
         }
         if constexpr (UPDATE) issue_update(o, ph, pl, xs);
         wg_commit();
         wg_wait<0>();
         reg_fence(s);
+        reg_fence(sl);
         if constexpr (UPDATE) reg_fence(o);
     }
     const long long t1 = clock64();
     if (tid == 0) cycles[blockIdx.x * CONSUMERS + wg] = t1 - t0;
     float keep = 0.f;   // the products' results stay live
 #pragma unroll
-    for (int i = 0; i < 16; ++i) keep += s[i];
+    for (int i = 0; i < 16; ++i) keep += s[i] + (i < 8 ? sl[i] : 0.f);
 #pragma unroll
     for (int i = 0; i < 64; ++i) keep += o[i];
     if (keep == 1234.5f) cycles[0] = -1;
@@ -1098,11 +1242,13 @@ extern "C" int ms_tf32_operand_probe(void* cycles, int mode, int tiles,
         case 1: return probe_launch<PROBE_N32, false>(c, tiles, grid, s);
         case 2: return probe_launch<PROBE_RS_HI, false>(c, tiles, grid, s);
         case 3: return probe_launch<PROBE_RS, false>(c, tiles, grid, s);
-        case 4: return probe_launch<PROBE_NONE, true>(c, tiles, grid, s);
-        case 5: return probe_launch<PROBE_SS3, true>(c, tiles, grid, s);
-        case 6: return probe_launch<PROBE_N32, true>(c, tiles, grid, s);
-        case 7: return probe_launch<PROBE_RS_HI, true>(c, tiles, grid, s);
-        case 8: return probe_launch<PROBE_RS, true>(c, tiles, grid, s);
+        case 4: return probe_launch<PROBE_RS_F16, false>(c, tiles, grid, s);
+        case 5: return probe_launch<PROBE_NONE, true>(c, tiles, grid, s);
+        case 6: return probe_launch<PROBE_SS3, true>(c, tiles, grid, s);
+        case 7: return probe_launch<PROBE_N32, true>(c, tiles, grid, s);
+        case 8: return probe_launch<PROBE_RS_HI, true>(c, tiles, grid, s);
+        case 9: return probe_launch<PROBE_RS, true>(c, tiles, grid, s);
+        case 10: return probe_launch<PROBE_RS_F16, true>(c, tiles, grid, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -1110,6 +1256,7 @@ extern "C" int ms_tf32_operand_probe(void* cycles, int mode, int tiles,
 // K1 f32 (queries = keys) and K5 (one iteration, queries apart). q: the f32
 // queries [nq, 128]; xt: the keys as tf32 tiles (the wrapper's
 // ms_tiles_tf32: rows zero-padded to a multiple of 16, 32 KB a 16-row
+// tile); x16: the same tiles' hi rows in fp16 (ms_tiles_hi16, 4 KB a
 // tile); out: [nq, 128] f32; inv2b2: one f32 on the device; iterations >= 1.
 // grid: blocks, at least ceil(nq / 128) and at most ceil(nq / 128)
 // ceil(nk / 16); above ceil(nq / 128) they share row blocks and must all be
@@ -1119,7 +1266,8 @@ extern "C" int ms_tf32_operand_probe(void* cycles, int mode, int tiles,
 // `counters` (ceil(nq / 128) u32, zero); slots: the most blocks that share
 // a row block. Returns cudaGetLastError() after the launch, or the reason
 // it refused to launch.
-extern "C" int ms_iterations_tf32(const void* q, const void* xt, void* out,
+extern "C" int ms_iterations_tf32(const void* q, const void* xt,
+                                  const void* x16, void* out,
                                   const void* inv2b2, void* ws,
                                   void* counters, int nq, int nk,
                                   int iterations, int grid, int slots,
@@ -1141,6 +1289,7 @@ extern "C" int ms_iterations_tf32(const void* q, const void* xt, void* out,
     if (err != cudaSuccess) return (int)err;
     const float* q_ = static_cast<const float*>(q);
     const uint8_t* xt_ = static_cast<const uint8_t*>(xt);
+    const uint8_t* x16_ = static_cast<const uint8_t*>(x16);
     float* out_ = static_cast<float*>(out);
     const float* inv2b2_ = static_cast<const float*>(inv2b2);
     float* ws_ = static_cast<float*>(ws);
@@ -1148,10 +1297,10 @@ extern "C" int ms_iterations_tf32(const void* q, const void* xt, void* out,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (grid == n_blocks) {
         ms_tf32_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-            q_, xt_, out_, inv2b2_, ws_, counters_, nq, nk, n_tiles, n_blocks,
-            iterations, slots);
+            q_, xt_, x16_, out_, inv2b2_, ws_, counters_, nq, nk, n_tiles,
+            n_blocks, iterations, slots);
     } else {
-        void* args[] = {&q_, &xt_, &out_, &inv2b2_, &ws_, &counters_,
+        void* args[] = {&q_, &xt_, &x16_, &out_, &inv2b2_, &ws_, &counters_,
                         (void*)&nq, (void*)&nk, (void*)&n_tiles,
                         (void*)&n_blocks, &iterations, &slots};
         err = cudaLaunchCooperativeKernel((const void*)ms_tf32_kernel, grid,

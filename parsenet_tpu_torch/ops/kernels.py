@@ -60,7 +60,7 @@ _F = ctypes.c_float
 # kernel -> (library it lives in, C function, argtypes); K5 is K1's kernel
 ENTRIES = {
     "K1": ("K1", "ms_iterations_tf32",
-           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "K1tc": ("K1tc", "ms_iterations_tc",
              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "K1_exit": ("K1", "ms_iterations_tf32_exit",
@@ -76,7 +76,7 @@ ENTRIES = {
     "K4": ("K4", "min_sqdist_bwd",
            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "K5": ("K1", "ms_iterations_tf32",
-           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}
@@ -256,6 +256,9 @@ def _ms_plain(X, bandwidth, iterations, bf16_dots, tol, exit_rows):
 
 MS_TILE = 64          # rows of one bf16 tile of X, and of one warpgroup's m
 MS_TF32_TILE = 16     # key rows of one tf32 tile (32 KB: X and X^T, hi, lo)
+# the tiles' hi rows in fp16 are hi times 2^MS_HI16_SHIFT (ms_tiles_hi16):
+# ms_iterations_tf32.cu's HI16_SHIFT, against which it holds m lo times 2^26
+MS_HI16_SHIFT = 14
 _MS_TILE_ORDER: dict[tuple, torch.Tensor] = {}  # (layout, device) -> index
 MS_PART_FLOATS = 2 * (MS_TILE * MS_WIDTH + 2 * 128)  # one block's partial
 MS_SPILL_FLOATS = 2 * MS_TILE * MS_WIDTH   # one block's m, spilled (tf32)
@@ -390,41 +393,62 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 MS_TF32_SLOT_ROW = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
+def _tf32_split_padded(X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """X [N, D <= 128] f32 zero-padded to [ceil(N / 16) * 16, 128] and split
+    by `tf32_split`."""
+    n, d = X.shape
+    n_pad = -(-n // MS_TF32_TILE) * MS_TF32_TILE
+    xp = torch.zeros((n_pad, MS_WIDTH), dtype=torch.float32, device=X.device)
+    xp[:n, :d] = X
+    return tf32_split(xp)
+
+
 def ms_tiles_tf32(X: torch.Tensor) -> torch.Tensor:
     """The tf32 K1's keys: X [N, D <= 128] f32, zero-padded to
     [ceil(N / 16) * 16, 128], split by `tf32_split` and cut into 16-row
     tiles of 8,192 f32 (32 KB), flat. A tile's first half is its rows x
     features, four 32-column blocks of 32 rows x 128 bytes: the 16 rows'
     hi, then their lo (the operand of S = m X^T: one m64n32k8 takes m hi
-    against all 32 rows, an m64n16k8 m lo against the first 16); its
-    second half the transpose, 128 feature rows of 32 values (16 key rows'
-    hi, then their lo; in each group of 8 the rows in MS_TF32_SLOT_ROW
-    order; the operand of O += P X). Both in wgmma's 128-byte swizzle: the
-    16-byte chunk j of a 128-byte row r is stored at chunk j ^ (r % 8). So,
-    with hl 0 for hi and 1 for lo, element (R, C) of a tile lies at
+    against all 32 rows, the early exit's m64n16k8 m lo against the first
+    16); its second half the transpose, 128 feature rows of 32 values (16
+    key rows' hi, then their lo; in each group of 8 the rows in
+    MS_TF32_SLOT_ROW order; the operand of O += P X). Both in wgmma's
+    128-byte swizzle: the 16-byte chunk j of a 128-byte row r is stored at
+    chunk j ^ (r % 8). So, with hl 0 for hi and 1 for lo, element (R, C)
+    of a tile lies at
       1024 (C // 32) + 512 hl + 32 R + 4 (((C % 32) // 4) ^ (R % 8)) + C % 4
     and at 4096 + 32 C + 4 ((s // 4) ^ (C % 8)) + s % 4, slot
     s = 16 hl + 8 (R // 8) + MS_TF32_SLOT_ROW.index(R % 8)."""
-    n, d = X.shape
-    n_pad = -(-n // MS_TF32_TILE) * MS_TF32_TILE
-    xp = torch.zeros((n_pad, MS_WIDTH), dtype=torch.float32, device=X.device)
-    xp[:n, :d] = X
-    src = torch.stack(tf32_split(xp))                     # [2, n_pad, 128]
+    src = torch.stack(_tf32_split_padded(X))              # [2, n_pad, 128]
     src = src.view(2, -1, MS_TF32_TILE, MS_WIDTH).transpose(0, 1)
     return src.reshape(-1, 2 * MS_TF32_TILE * MS_WIDTH)[
         :, _tile_order("tf32", X.device)].reshape(-1)
 
 
+def ms_tiles_hi16(X: torch.Tensor) -> torch.Tensor:
+    """The fixed-count tf32 K1's second key operand: the hi rows of
+    `ms_tiles_tf32`'s tiles (tf32_split's hi, 11 significant bits) times
+    2^MS_HI16_SHIFT in fp16, exact for |hi| >= 2^-28 and finite for unit
+    rows, 2,048 values (4 KB) a 16-row tile, flat: the B operand of the
+    score product's fp16 lo.hi (m64n16k16). Two 64-column blocks of 16
+    rows x 128 bytes in the 128-byte swizzle: element (R, C) of a tile
+    lies at 1024 (C // 64) + 64 R + 8 (((C % 64) // 8) ^ (R % 8)) + C % 8."""
+    hi = _tf32_split_padded(X)[0] * 2.0 ** MS_HI16_SHIFT
+    return hi.to(torch.float16).view(-1, MS_TF32_TILE * MS_WIDTH)[
+        :, _tile_order("hi16", X.device)].reshape(-1)
+
+
 def _tile_order(layout: str, device: torch.device) -> torch.Tensor:
     """For each position of a swizzled tile of `layout`, the row-major index
     of the element stored there: for "bf16" into the tile's 64 x 128
-    values, for "tf32" into its [2 (hi, lo), 16, 128] values; cached per
-    device."""
+    values, for "tf32" into its [2 (hi, lo), 16, 128] values, for "hi16"
+    into its 16 x 128; cached per device."""
     key = (layout, str(device))
     if key not in _MS_TILE_ORDER:
-        if layout == "bf16":
+        if layout in ("bf16", "hi16"):   # 16-bit values, 64 a 128-byte row
+            rows = MS_TILE if layout == "bf16" else MS_TF32_TILE
             half, row, chunk, elem = torch.meshgrid(
-                torch.arange(2), torch.arange(MS_TILE), torch.arange(8),
+                torch.arange(2), torch.arange(rows), torch.arange(8),
                 torch.arange(8), indexing="ij")
             src = row * MS_WIDTH + half * 64 + (chunk ^ (row % 8)) * 8 + elem
         else:
@@ -570,9 +594,12 @@ def _ms_iterations_tf32(m: torch.Tensor, x: torch.Tensor,
                       + grid * MS_SPILL_FLOATS if grid > blocks else 1,),
                      dtype=torch.float32, device=m.device)
     counters = torch.zeros((blocks,), dtype=torch.int32, device=m.device)
-    _launch(name, qp.data_ptr(), ms_tiles_tf32(x).data_ptr(), out.data_ptr(),
-            inv2b2.data_ptr(), ws.data_ptr(), counters.data_ptr(), nq, nk,
-            iterations, grid, slots)
+    # both held until the launch is queued: a temporary freed before the
+    # other is made could hand its memory to the other's work
+    tiles, tiles16 = ms_tiles_tf32(x), ms_tiles_hi16(x)
+    _launch(name, qp.data_ptr(), tiles.data_ptr(), tiles16.data_ptr(),
+            out.data_ptr(), inv2b2.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), nq, nk, iterations, grid, slots)
     return out
 
 
@@ -612,11 +639,14 @@ def mean_shift_step(m: torch.Tensor, x: torch.Tensor,
 # phase 6): mode -> (bytes of operands read from shared memory, FMA) of one
 # consumer warpgroup's key tile, in the C entry's order. The score modes
 # differ only in where their operands lie (ss3: three m64n16k8 a k-step,
-# m hi read twice; n32: the exit's; rs_hi: the fixed-count kernel's; rs: m
-# hi and lo both from registers); "update" is the tile's O += P X.
+# m hi read twice; n32: the exit's; rs_hi: m hi from registers; rs: m hi
+# and lo both from registers as tf32; rs_f16: the fixed-count kernel's, m
+# lo from registers as fp16 in 8 m64n16k16 against fp16 hi rows);
+# "update" is the tile's O += P X.
 _SCORE_FMA = 3 * 64 * 16 * 128
 _SCORE_BYTES = {"ss3": 48 * (2048 + 512), "n32": 16 * (3072 + 2560),
-                "rs_hi": 16 * (1024 + 2560), "rs": 16 * (1024 + 512)}
+                "rs_hi": 16 * (1024 + 2560), "rs": 16 * (1024 + 512),
+                "rs_f16": 16 * 1024 + 8 * 512}
 _UPDATE_BYTES = 6 * 4096
 MS_TF32_PROBE = {
     **{f"score_{k}": (v, _SCORE_FMA) for k, v in _SCORE_BYTES.items()},

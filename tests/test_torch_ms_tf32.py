@@ -29,6 +29,31 @@ def _truncate(t):
     return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
 
 
+def _rz16(v):
+    """f32 array v to fp16 rounded toward zero (PTX's cvt.rz.f16x2.f32)."""
+    v = np.asarray(v, np.float32)
+    h = v.astype(np.float16)                      # to nearest
+    away = np.abs(h.astype(np.float64)) > np.abs(v.astype(np.float64))
+    return np.where(away, np.nextafter(h, np.float16(0)), h)
+
+
+LO16_SHIFT = 26   # ms_iterations_tf32.cu's: m lo held as lo 2^26 in fp16
+
+
+def _lo16(lo):
+    """m lo as the fixed-count kernel's fp16 A fragments hold it (pack_lo16:
+    lo 2^26 toward zero), scaled back: the value its lo.hi product reads."""
+    x = torch.as_tensor(lo).numpy() * np.float32(2.0 ** LO16_SHIFT)
+    return torch.from_numpy(_rz16(x).astype(np.float32)
+                            / np.float32(2.0 ** LO16_SHIFT))
+
+
+def _hi16(hi):
+    """x hi as ms_tiles_hi16 holds it (hi 2^14 in fp16), scaled back."""
+    s = 2.0 ** kernels.MS_HI16_SHIFT
+    return (torch.as_tensor(hi) * s).to(torch.float16).to(torch.float32) / s
+
+
 def _mm(a, b, products):
     """a @ b as the kernel's update forms it: hi.hi + hi.lo + lo.hi of the
     tf32 split, each operand truncated, f32 accumulation; products=1 keeps
@@ -42,14 +67,17 @@ def _mm(a, b, products):
 
 
 def _scores(m, x, products):
-    """m @ x.T as the kernel's score product groups it: one accumulator
-    takes hi.hi and lo.hi (the n32 product's first 16 columns and the n16
-    product), another hi.lo (its last 16), and the two are added."""
-    mh, ml = (_truncate(t) for t in kernels.tf32_split(m))
+    """m @ x.T as the fixed-count kernel's score product groups it: one
+    accumulator takes hi.hi (the n32 product's first 16 columns), one
+    hi.lo (its last 16), one lo.hi (the fp16 n16 product, m lo and x hi as
+    fp16 read them, at 2^40, a scale that moves no rounding), added as
+    (hi.hi + lo.hi) + hi.lo."""
+    mh, ml = kernels.tf32_split(m)
     xh, xl = (_truncate(t) for t in kernels.tf32_split(x))
+    mh = _truncate(mh)
     if products == 1:
         return mh @ xh.T
-    return (mh @ xh.T + ml @ xh.T) + mh @ xl.T
+    return (mh @ xh.T + _lo16(ml) @ _hi16(xh).T) + mh @ xl.T
 
 
 def _emulate(m, x, inv2b2, iterations, products=3):
@@ -116,6 +144,65 @@ def test_ms_tiles_tf32_layout(n, d):
     assert seen.all()
 
 
+@pytest.mark.parametrize("n,d", [(37, 128), (100, 64), (16, 128), (129, 64)])
+def test_ms_tiles_hi16_layout(n, d):
+    """The fixed-count kernel's fp16 key operand: element (R, C) of X's hi
+    (tf32_split, X zero-padded to [ceil(N / 16) * 16, 128]) times 2^14 in
+    fp16 lies where the m64n16k16's descriptors read it: 4 KB a tile, two
+    64-column blocks of 16 rows x 128 bytes in the 128-byte swizzle;
+    nothing else is nonzero. For unit rows the fp16 value is hi exactly
+    wherever |hi| >= 2^-28, and within 2^-39 below."""
+    rng = np.random.RandomState(n + d)
+    x = rng.randn(n, d).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[::3, 1] *= np.float32(2.0 ** -36)     # components in fp16's subnormals
+    got = kernels.ms_tiles_hi16(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float16
+    n_pad = -(-n // 16) * 16
+    assert got.size == n_pad // 16 * 2048
+    xp = np.zeros((n_pad, 128), np.float32)
+    xp[:n, :d] = x
+    hi = kernels.tf32_split(torch.from_numpy(xp))[0].numpy()
+    rows, cols = np.meshgrid(np.arange(n_pad), np.arange(128), indexing="ij")
+    tile, r = rows // 16, rows % 16
+    off = (2048 * tile + 1024 * (cols // 64) + 64 * r
+           + 8 * (((cols % 64) // 8) ^ (r % 8)) + cols % 8)
+    scale = 2.0 ** kernels.MS_HI16_SHIFT
+    np.testing.assert_array_equal(got[off], (hi * scale).astype(np.float16))
+    assert len(np.unique(off)) == got.size
+    back = got[off].astype(np.float64) / scale
+    normal = np.abs(hi) >= 2.0 ** -28
+    assert (~normal).any() and normal.any()
+    np.testing.assert_array_equal(back[normal], hi[normal])
+    assert np.abs(back - hi).max() <= 2.0 ** -39
+
+
+def test_m_lo_fp16_is_the_tf32_truncation():
+    """m lo as the fixed-count kernel packs it (lo 2^26 to fp16 toward
+    zero), over unit rows with components down to 2^-60: the tf32
+    truncation of lo, bit for bit, wherever |lo| >= 2^-40 (fp16's normal
+    range), and within 2^-50 of it below, the bound ms_iterations_tf32.cu's
+    header states (a lo.hi term off by 2^-49 at most, S by 2^-42, against
+    3xTF32's dropped lo.lo of up to 2^-22 |m_i x_i|). Nothing overflows:
+    |lo| 2^26 <= 2^15."""
+    rng = np.random.RandomState(22)
+    m = rng.randn(512, 128).astype(np.float32)
+    m[:, :32] *= np.float32(2.0) ** -rng.randint(0, 60, (512, 32)).astype(
+        np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    lo = kernels.tf32_split(torch.from_numpy(m))[1]
+    got = _lo16(lo).numpy()
+    want = _truncate(lo).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(lo.numpy()).max() * 2.0 ** LO16_SHIFT <= 2.0 ** 15
+    normal = np.abs(lo.numpy()) >= 2.0 ** -40
+    assert (~normal).sum() > 100 and normal.sum() > 10000
+    np.testing.assert_array_equal(got[normal], want[normal])
+    assert np.abs(got - want).max() < 2.0 ** -50
+    # below fp16's range lo is dropped toward zero, never rounded up
+    assert (np.abs(got) <= np.abs(lo.numpy())).all()
+
+
 def _operand(tiles, t, kb, rows):
     """The K-major operand that a wgmma descriptor at 32-column block kb of
     tile t's first half reads: `rows` rows of 32 f32 (128 bytes each), the
@@ -125,22 +212,37 @@ def _operand(tiles, t, kb, rows):
     return flat[np.arange(rows)[:, None], chunk].reshape(rows, 32)
 
 
+def _operand16(tiles16, t, kb, rows=16):
+    """The K-major fp16 operand that a wgmma descriptor at 64-column block
+    kb of tile t of ms_tiles_hi16 reads: 16 rows of 64 fp16 values, the
+    128-byte swizzle undone."""
+    flat = tiles16[2048 * t + 1024 * kb:][:64 * rows].reshape(rows, 8, 8)
+    chunk = np.arange(8)[None, :] ^ (np.arange(rows)[:, None] % 8)
+    return flat[np.arange(rows)[:, None], chunk].reshape(rows, 64)
+
+
 @pytest.mark.parametrize("n", [16, 37])
 def test_score_product_columns_hold_hi_hi_and_hi_lo(n):
     """The score product's operands as its descriptors read them from the
     key tiles: m hi against a block's 32 rows (one m64n32k8 a k-step) puts
-    hi.hi of key c in column c and hi.lo in column 16 + c, and m lo against
-    the first 16 rows (the m64n16k8) gives lo.hi; the kernel's sum of the
-    two accumulators' columns c and 16 + c is _scores' grouping (here in
-    f64), for every key of every tile."""
+    hi.hi of key c in column c and hi.lo in column 16 + c; the fixed-count
+    kernel's fp16 m lo (lo 2^26) against ms_tiles_hi16's rows (hi 2^14)
+    gives lo.hi 2^40 in column c of an accumulator of its own; the early
+    exit's m lo (tf32) against a block's first 16 rows (an m64n16k8) gives
+    lo.hi, added to column c. Each kernel's fold, (hi.hi + lo.hi) + hi.lo,
+    is _scores' grouping (here in f64), for every key of every tile."""
     rng = np.random.RandomState(n)
     x = _clustered(rng, n)
     m = _clustered(rng, 64)
     tiles = kernels.ms_tiles_tf32(torch.from_numpy(x)).numpy()
-    mh, ml = (_truncate(t).numpy().astype(np.float64)
-              for t in kernels.tf32_split(torch.from_numpy(m)))
+    tiles16 = kernels.ms_tiles_hi16(torch.from_numpy(x)).numpy()
+    mh, ml = kernels.tf32_split(torch.from_numpy(m))
+    ml16 = (_lo16(ml).numpy().astype(np.float64)
+            * 2.0 ** LO16_SHIFT)                       # the fp16 values
+    mh, ml = (_truncate(t).numpy().astype(np.float64) for t in (mh, ml))
     xh, xl = (_truncate(t).numpy().astype(np.float64)
               for t in kernels.tf32_split(torch.from_numpy(x)))
+    big = 2.0 ** (LO16_SHIFT + kernels.MS_HI16_SHIFT)
     n_tiles = -(-n // 16)
     for t in range(n_tiles):
         keys = np.arange(16 * t, min(16 * t + 16, n))
@@ -148,19 +250,28 @@ def test_score_product_columns_hold_hi_hi_and_hi_lo(n):
                               for kb in range(4)], axis=1)     # [32, 128]
         b16 = np.concatenate([_operand(tiles, t, kb, 16)
                               for kb in range(4)], axis=1)
+        h16 = np.concatenate([_operand16(tiles16, t, kb)
+                              for kb in range(2)], axis=1)     # [16, 128]
         np.testing.assert_array_equal(b16, b32[:16])
         n32 = mh @ _truncate(torch.from_numpy(b32)).numpy().T  # [64, 32]
         c = keys - 16 * t
         np.testing.assert_array_equal(n32[:, c], mh @ xh[keys].T)
         np.testing.assert_array_equal(n32[:, 16 + c], mh @ xl[keys].T)
+        f16 = ml16 @ h16.astype(np.float64).T                  # [64, 16]
+        lo_hi = ml16 / 2.0 ** LO16_SHIFT @ xh[keys].T
+        np.testing.assert_array_equal(f16[:, c], big * lo_hi)
+        got = (n32[:, c] + f16[:, c] / big) + n32[:, 16 + c]
+        want = (mh @ xh[keys].T + lo_hi) + mh @ xl[keys].T
+        np.testing.assert_array_equal(got, want)
         n16 = ml @ _truncate(torch.from_numpy(b16)).numpy().T
         np.testing.assert_array_equal(n16[:, c], ml @ xh[keys].T)
         got = (n32[:, c] + n16[:, c]) + n32[:, 16 + c]
         want = (mh @ xh[keys].T + ml @ xh[keys].T) + mh @ xl[keys].T
         np.testing.assert_array_equal(got, want)
-        # the padding rows of the last tile give 0 in both halves
+        # the padding rows of the last tile give 0 in every product
         pad = np.arange(len(keys), 16)
         assert not n32[:, pad].any() and not n32[:, 16 + pad].any()
+        assert not f16[:, pad].any()
 
 
 @pytest.mark.parametrize("n,bandwidth,iterations,tol", [
@@ -220,13 +331,17 @@ def test_ms_plan_tf32_separate_keys(nq, nk):
 def _wgmma_bytes_fma(kind, n):
     """Operand bytes read from shared memory and FMA of one tf32
     m64n{n}k8: A (64 x 8) from shared memory for "ss" only, B (8 x n)
-    always."""
+    always; for "rs_f16" half an fp16 m64n{n}k16 (A from registers, B 16
+    x n of 2 bytes), the same 8 features."""
+    if kind == "rs_f16":
+        return 8 * n * 2, 64 * n * 8
     return (64 * 8 * 4 if kind == "ss" else 0) + 8 * n * 4, 64 * n * 8
 
 
 @pytest.mark.parametrize("layout,per_kstep", [
     ("ss3", [("ss", 16)] * 3), ("n32", [("ss", 32), ("ss", 16)]),
-    ("rs_hi", [("rs", 32), ("ss", 16)]), ("rs", [("rs", 32), ("rs", 16)])])
+    ("rs_hi", [("rs", 32), ("ss", 16)]), ("rs", [("rs", 32), ("rs", 16)]),
+    ("rs_f16", [("rs", 32), ("rs_f16", 16)])])
 def test_operand_probe_modes(layout, per_kstep):
     """kernels.MS_TF32_PROBE: each score layout's bytes and FMA a tile are
     its wgmma shapes' over 16 k-steps, the update's its 6 RS m64n128k8, and
