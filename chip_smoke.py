@@ -108,9 +108,8 @@ Phases, one line each (plus detail lines):
      protocol_coverage takes), the distinct results of each counted (the
      latter must give one); stream a once more from the same generator
      state, every per-shape metric (p_cov, sk_1, sk_2 included) equal bit
-     for bit; then the spline-free arm (spline_fit=None, bench.py's
-     BENCH_ABLATE=splines), 2 timed batches, beside the JAX package's
-     figures of that arm;
+     for bit; then the spline-free path (spline_fit=None), 2 timed
+     batches, beside the JAX package's figures of that path;
   4b. the library's default f32 mean-shift: the first timed batch of
      stream a through run_batch(..., ms_bf16=False) and, beside it, with
      ms_bf16=True (the second of two runs each, one generator seed): ms a
@@ -186,18 +185,14 @@ Phases, one line each (plus detail lines):
   7. (run before 6) the port's benches in process, every run's launches
      counted from zero: parsenet_tpu_torch.cli.bench.run at bench.py's
      full scale (stream a, 10,000 points, batch 4, 2 + 8 batches) for the
-     full path (floors applied and met), each BENCH_ABLATE arm (ms, siou,
-     recon, splines, preprocess, coverage, residual: the zeros and 1s of
-     the JAX arms exact, the other quality figures within 0.01 absolute
-     (seg_iou, sk_2) or 10% relative (residual, p_cov) of the JAX arm's in
-     artifacts/r5_infer_ablate.jsonl, the kernels each arm runs launched
-     and those it stubs not), and BENCH_DGCNN_BF16 / BENCH_GATHER_BF16
-     (floors met); the stage costs full - arm; then cli.bench_train, cut to
-     2 timed steps (seg; the script runs 5) or 3 (e2e) after one warm-up:
-     seg, seg with BT_BF16 and with BT_REMAT (shapes/s, peak memory), e2e
-     and e2e with BT_FAST (K1 f32, K2, K3, K4 launched), and e2e_ablate at
-     5 timed steps an arm (the script runs 3; its cost_<arm>_ms); grad_ok 1
-     in every train run;
+     full path (floors applied and met; the quality figures within 0.01
+     absolute (seg_iou, sk_2) or 10% relative (residual, p_cov) of the
+     JAX package's full path, BENCH_r05.json) and BENCH_DGCNN_BF16 /
+     BENCH_GATHER_BF16 (floors met), K1 bf16, K2 and K3 launched in each
+     and the f32 K1 not; then cli.bench_train, cut to 2 timed steps (seg;
+     the script runs 5) or 3 (e2e) after one warm-up: seg, seg with
+     BT_BF16 and with BT_REMAT (shapes/s, peak memory), e2e and e2e with
+     BT_FAST (K1 f32, K2, K3, K4 launched); grad_ok 1 in every train run;
   6. kernel times at main-path shapes beside the plain version, the bound
      and the library yardstick where PyTorch computes the same
      (sdpa_mean_shift for K1 and, one step, K5, torch.cdist for K3,
@@ -314,32 +309,17 @@ TF32_FMA_CLOCK = PEAK_TF32 / 2 / 132 / 1.83e9
 PROBE_TILES = 8192
 
 # stream-a quality of the JAX package, printed beside the port's: the full
-# path (BENCH_r05.json) and the spline-free arm (artifacts/
+# path (BENCH_r05.json) and the spline-free path (artifacts/
 # r5_infer_ablate.jsonl, arm "splines")
 REFERENCE_FULL = {"seg_iou": 0.8907, "residual": 0.01019, "p_cov": 0.01588,
                   "sk_2": 0.8688}
 REFERENCE_ABLATE = {"seg_iou": 0.8907, "residual": 0.00907, "p_cov": 0.01523,
                     "sk_2": 0.8899}
 # Phase 7: the port's bench runs (environment knobs of cli.bench; each at
-# bench.py's full scale: 10,000 points, batch 4, 2 + 8 batches of stream a),
-# the JAX package's figures of each arm (artifacts/r5_infer_ablate.jsonl:
-# residual, seg_iou, p_cov, sk_2), and the kernels each arm launches
-ARM_TAGS = ("ms", "siou", "recon", "splines", "preprocess", "coverage",
-            "residual")
-BENCH_RUNS = {"full": {}, **{a: {"BENCH_ABLATE": a} for a in ARM_TAGS},
-              "dgcnn_bf16": {"BENCH_DGCNN_BF16": "1"},
+# bench.py's full scale: 10,000 points, batch 4, 2 + 8 batches of stream a)
+BENCH_RUNS = {"full": {}, "dgcnn_bf16": {"BENCH_DGCNN_BF16": "1"},
               "gather_bf16": {"BENCH_GATHER_BF16": "1"}}
 BENCH_QUALITY = ("residual", "seg_iou", "p_cov", "sk_2")
-JAX_ARMS = {"full": (0.01019, 0.8907, 0.01588, 0.8688),
-            "ms": (0.00317, 1.0, 0.01051, 0.9383),
-            "siou": (0.01019, 1.0, 0.01588, 0.8688),
-            "recon": (0.0, 0.8907, 0.0, 0.0),
-            "splines": (0.00907, 0.8907, 0.01523, 0.8899),
-            "preprocess": (0.01024, 0.8907, 0.01636, 0.8677),
-            "coverage": (0.01019, 0.8907, 0.0, 0.0),
-            "residual": (0.0, 0.8907, 0.01588, 0.8688)}
-BENCH_KERNELS = {"ms": ("K3",), "siou": ("K1tc", "K3"),
-                 "recon": ("K1tc", "K2")}
 # K1's early exit: the tolerance scripts/ab_mean_shift.py A/Bs, a coarse
 # one at which leaving early moves m by more than the limits below, and the
 # seconds a launch of phase 3 may take before the run fails as hung
@@ -2266,7 +2246,7 @@ def main():
     phase(e2e_kernel_checks)
 
     # ---- 4. the slice: bench.py's configuration, with the spline slots,
-    # then the spline-free arm
+    # then the spline-free path
     spline_fit = build_spline_fit(device=dev)
 
     def stream_a(n_timed, fit):
@@ -2441,11 +2421,11 @@ def main():
 
     phase(slice_run)
 
-    def ablate_run():
-        report_arm("slice_spline_free", "stream a, spline-free arm", 2,
+    def spline_free_run():
+        report_arm("slice_spline_free", "stream a, spline-free path", 2,
                    *stream_a(2, None), REFERENCE_ABLATE, "JAX spline-free")
 
-    phase(ablate_run)
+    phase(spline_free_run)
 
     # ---- 4b. the library's default mean-shift (f32, K1 on 3xTF32) on one
     # batch of stream a, beside bf16 on the same 4 shapes
@@ -3115,7 +3095,7 @@ def main():
     phase(seg_run)
 
     # ---- 7. the port's benches in process: cli.bench at full scale (the
-    # full path, each BENCH_ABLATE arm, both bf16 network knobs), then
+    # full path and both bf16 network knobs), then
     # cli.bench_train with shortened step counts; every run's launches
     # counted from zero
     from parsenet_tpu_torch.cli import bench as cbench
@@ -3148,41 +3128,24 @@ def main():
                       f"K2 {launches['K2']} K3 {launches['K3']}", flush=True)
                 check(all(np.isfinite(d[k]) for k in BENCH_QUALITY)
                       and rec["value"] > 0, f"bench {tag}: finite metrics")
-                arm = env.get("BENCH_ABLATE")
-                if arm is None:
-                    check(d["floors_applied"] and d["quality_ok"]
-                          and d["trained_params"],
-                          f"bench {tag}: floors applied and met")
-                ref = JAX_ARMS.get(arm or "full")
-                if ref is not None:
-                    for k, want in zip(BENCH_QUALITY, ref):
-                        got = d[k]
-                        if want in (0.0, 1.0):
-                            ok = got == want
-                        elif k in ("seg_iou", "sk_2"):
-                            ok = abs(got - want) <= 0.01
-                        else:
-                            ok = abs(got - want) <= 0.1 * want
-                        check(ok, f"bench {tag}: {k} {got:.5f} against the "
-                              f"JAX arm's {want} (0/1 exact, 0.01 absolute, "
-                              "10% relative)")
-                runs_k = BENCH_KERNELS.get(arm, ("K1tc", "K2", "K3"))
+                check(d["floors_applied"] and d["quality_ok"]
+                      and d["trained_params"],
+                      f"bench {tag}: floors applied and met")
+                for k in BENCH_QUALITY:
+                    got, want = d[k], REFERENCE_FULL[k]
+                    tol = 0.01 if k in ("seg_iou", "sk_2") else 0.1 * want
+                    check(abs(got - want) <= tol,
+                          f"bench {tag}: {k} {got:.5f} against the JAX "
+                          f"full path's {want} (0.01 absolute, 10% "
+                          "relative)")
                 for kname in ("K1tc", "K2", "K3"):
-                    want_run = kname in runs_k
-                    check((launches[kname] > 0) == want_run,
-                          f"bench {tag}: {kname} launched {launches[kname]} "
-                          f"({'some' if want_run else 'none'} expected)")
+                    check(launches[kname] > 0,
+                          f"bench {tag}: {kname} launched {launches[kname]}")
                 check(launches["K1"] == 0, f"bench {tag}: no f32 K1")
             full = out["full"]["record"]["detail"]["per_shape_ms"]
             print(f"  full path {full:.2f} ms/shape beside phase 4's "
                   f"{report.get('slice', {}).get('ms_per_shape', 0.0):.2f} "
                   "in this call", flush=True)
-            out["stage_cost_ms_per_shape"] = {
-                arm: full - out[arm]["record"]["detail"]["per_shape_ms"]
-                for arm in ARM_TAGS}
-            print("  stage costs (full - arm), ms/shape: " + ", ".join(
-                f"{k} {v:.2f}" for k, v in
-                out["stage_cost_ms_per_shape"].items()), flush=True)
             # cli.bench_train: shortened step counts (the script's own
             # defaults are 5 seg and 3 e2e timed steps)
             for tag, fn, env, want in (
@@ -3206,16 +3169,6 @@ def main():
                 for kname in want:
                     check(launches[kname] > 0,
                           f"bench_train {tag}: {kname} launched")
-            rec, launches = counted(lambda: cbt.bench_e2e_ablate(
-                {}, steps=5, device=dev))
-            out["e2e_ablate"] = {"record": rec, "launches": launches}
-            print("[7 bench_train] e2e_ablate (5 timed steps an arm): full "
-                  f"{rec['value']:.1f} ms/step; " + ", ".join(
-                      f"{k} {v:.1f}" for k, v in rec["detail"].items()
-                      if k.startswith("cost_")), flush=True)
-            check(all(np.isfinite(v) for k, v in rec["detail"].items()
-                      if k.startswith("cost_")),
-                  "bench_train e2e_ablate: every cost finite")
         out["launches"] = dict(bench_l)
         out["seconds"] = time.perf_counter() - t_phase
         print(f"[7 bench] {out['seconds']:.1f} s, launches {bench_l}",

@@ -18,27 +18,28 @@ Prints ONE JSON line, {"metric": "torch_abc_shapes_per_hour_e2e", "value":
 shapes/hour, "unit": "shapes/hour", "detail": {...}}: bench.py's detail
 fields plus the card's name and power limit (nvidia-smi) and the seeds.
 There is no vs_baseline: its yardstick, 1,250 shapes/hour a chip, is a
-TPU target. With a trained model at 10,000 points on stream a and no
-ablation the configs/quality_floors.json "bench" floors apply; a run that
-misses them exits 1 after printing.
+TPU target. With a trained model at 10,000 points on stream a the
+configs/quality_floors.json "bench" floors apply; a run that misses them
+exits 1 after printing. The detail keeps bench.py's field of stubbed
+stages, always empty, for cli.promote_candidate, which reads it.
 
 Knobs (environment), as bench.py reads them: BENCH_POINTS (10000),
 BENCH_BATCH (4), BENCH_ITERS (8), BENCH_STREAM (a | b), BENCH_PARAMS,
 BENCH_SPLINE_DIR, BENCH_MS_BF16 (1), BENCH_DGCNN_BF16 (0: the bf16 network
-of models.dgcnn), BENCH_GATHER_BF16 (0), BENCH_ABLATE (a comma list of
-eval.pipeline.ABLATE_ARMS), BENCH_SHARD (0) and BENCH_WATCHDOG_S (3600;
-0 = off: past it the bench prints a zero line and exits 2). Knobs the
-port cannot honour raise an error that names them (REFUSED):
-BENCH_PREFLIGHT=1 (the TPU relay's probe) and PARSENET_KNN_RECALL
-(approx_max_k; the port's kNN is exact).
+of models.dgcnn), BENCH_GATHER_BF16 (0), BENCH_SHARD (0) and
+BENCH_WATCHDOG_S (3600; 0 = off: past it the bench prints a zero line and
+exits 2). Knobs the port cannot honour raise an error that names them and
+says why (REFUSED): BENCH_PREFLIGHT=1 (the TPU relay's probe),
+PARSENET_KNN_RECALL (approx_max_k; the port's kNN is exact) and bench.py's
+knob of stubbed stages (STAGE_COSTS); an empty value of the last
+two is the unset knob.
 
 BENCH_SHARD=1 under `torchrun --nproc-per-node=W` (W > 1) shards every
 batch over the W cards (eval.sharded.make_batched_eval: each rank runs its
 slice of the batch, per-shape draws seeded from the batch and the shape's
 index, the metric sums all-reduced); rank 0 prints the one JSON line, its
-shapes counted over all ranks. BENCH_BATCH must divide by W and
-BENCH_ABLATE must be unset. With one rank it is the unsharded run, as
-bench.py's n_dev > 1 guard makes it.
+shapes counted over all ranks. BENCH_BATCH must divide by W. With one
+rank it is the unsharded run, as bench.py's n_dev > 1 guard makes it.
 
 Weights: an explicit BENCH_PARAMS npz (missing or not fitting the network:
 an error), else logs/checkpoints/parsenet_e2e.npz, then
@@ -69,7 +70,7 @@ from ..core.checkpoint import load_npz_params
 from ..core.guards import entry_device
 from ..data.abc import normalize_points
 from ..data.synthetic import make_shape_batch
-from ..eval.pipeline import ABLATE_ARMS, batch_metrics
+from ..eval.pipeline import batch_metrics
 from ..fitting.spline_apply import build_spline_fit, trained_spline_fit
 from ..models.dgcnn import PrimitivesEmbedding, init_flax_like, params_from_jax
 
@@ -82,21 +83,26 @@ FLOORS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
 CHECKPOINTS = ("logs/checkpoints/parsenet_e2e.npz",
                "logs/checkpoints/parsenet_seg_normals.npz",
                "params/parsenet_e2e.npz")
-# knob -> (values the port refuses, why); None refuses any setting
+# why the JAX benches' knobs of stubbed stages are refused
+STAGE_COSTS = ("the port costs each stage from its timer and spans (python3 "
+               "benchmark/run.py --trace 1), not by running it stubbed")
+# knob -> (values the port refuses, why); None refuses any non-empty
+# setting (an empty one, as in the JAX bench, asks for nothing)
 REFUSED = {
     "BENCH_PREFLIGHT": (("1",), "the relay preflight probes a remote TPU"),
     "PARSENET_KNN_RECALL": (None, "approx_max_k is a TPU primitive; the "
                             "port's kNN is exact"),
+    "BENCH_ABLATE": (None, STAGE_COSTS),
 }
 
 
 def settings(env: Mapping[str, str] = os.environ) -> dict:
     """The bench's knobs from `env`, checked before any setup: an invalid
-    BENCH_STREAM or ablation arm and every refused knob raise ValueError
-    naming the knob."""
+    BENCH_STREAM, an indivisible sharded batch and every refused knob raise
+    ValueError naming the knob."""
     for knob, (values, why) in REFUSED.items():
         v = env.get(knob)
-        if v is not None and (values is None or v in values):
+        if v and (values is None or v in values):
             raise ValueError(f"bench: {knob}={v} cannot be honoured by the "
                              f"port: {why}")
     stream = env.get("BENCH_STREAM", "a")
@@ -104,16 +110,9 @@ def settings(env: Mapping[str, str] = os.environ) -> dict:
         raise ValueError(f"bench: BENCH_STREAM={stream!r} invalid; allowed "
                          "values: 'a' (primary gate stream), 'b' (disjoint "
                          "promotion-noise stream)")
-    ablate = tuple(a for a in env.get("BENCH_ABLATE", "").split(",") if a)
-    bad = [a for a in ablate if a not in ABLATE_ARMS]
-    if bad:
-        raise ValueError(f"bench: BENCH_ABLATE arms {bad} unknown; allowed: "
-                         f"{ABLATE_ARMS}")
     world = int(env.get("WORLD_SIZE", "1"))
     shard = env.get("BENCH_SHARD", "0") == "1" and world > 1
     batch = int(env.get("BENCH_BATCH", "4"))
-    if env.get("BENCH_SHARD", "0") == "1" and ablate:
-        raise ValueError("bench: BENCH_SHARD and BENCH_ABLATE are exclusive")
     if shard and batch % world:
         raise ValueError(f"bench: BENCH_BATCH={batch} not divisible by "
                          f"{world} ranks (BENCH_SHARD=1)")
@@ -128,7 +127,6 @@ def settings(env: Mapping[str, str] = os.environ) -> dict:
         "ms_bf16": env.get("BENCH_MS_BF16", "1") == "1",
         "dgcnn_bf16": env.get("BENCH_DGCNN_BF16", "0") == "1",
         "gather_bf16": env.get("BENCH_GATHER_BF16", "0") == "1",
-        "ablate": ablate,
         "watchdog_s": float(env.get("BENCH_WATCHDOG_S", "3600")),
     }
 
@@ -225,7 +223,6 @@ def run(cfg: dict, device=None) -> dict:
     else:
         dev = entry_device(device)
     floors = json.load(open(FLOORS_PATH))["bench"]
-    ablate = cfg["ablate"]
     model = PrimitivesEmbedding(
         emb_size=128, num_primitives=10, mode=5, k=80,
         dtype=torch.bfloat16 if cfg["dgcnn_bf16"] else torch.float32,
@@ -233,8 +230,6 @@ def run(cfg: dict, device=None) -> dict:
     params_src, trained = load_trained_params(model, cfg["params"])
     model.to(dev).eval()
     spline_fit, spline_src = spline_decoders(cfg["spline_dir"], dev)
-    if "splines" in ablate:
-        spline_fit = None
     b_n, iters = cfg["batch"], cfg["iters"]
     pts, labels, normals, prim = stream_shapes(
         cfg["stream"], (WARMUP + iters) * b_n, cfg["points"])
@@ -253,7 +248,7 @@ def run(cfg: dict, device=None) -> dict:
                            seed=GENERATOR_SEED * 1_000_003 + b)
         out = batch_metrics(model, pts[s], normals[s], labels[s], prim[s],
                             gen, ms_bf16=cfg["ms_bf16"],
-                            spline_fit=spline_fit, ablate=ablate, device=dev)
+                            spline_fit=spline_fit, device=dev)
         return torch.stack([out[k].sum() for k in
                             ("residual", "seg_iou", "p_cov", "sk_2")])
 
@@ -277,7 +272,7 @@ def run(cfg: dict, device=None) -> dict:
     n_shapes = iters * b_n
     residual, seg_iou, p_cov, sk_2 = (float(v) / n_shapes for v in sums)
     floors_applied = (trained and cfg["points"] == 10000
-                      and cfg["stream"] == "a" and not ablate)
+                      and cfg["stream"] == "a")
     quality_ok = (not floors_applied) or (
         seg_iou >= floors["seg_iou_min"] and residual <= floors["residual_max"]
         and sk_2 >= floors["sk_2_min"])
@@ -294,7 +289,7 @@ def run(cfg: dict, device=None) -> dict:
             "trained_params": trained, "params_src": params_src,
             "dgcnn_bf16": cfg["dgcnn_bf16"],
             "gather_bf16": cfg["gather_bf16"], "ms_bf16": cfg["ms_bf16"],
-            "ablate": ",".join(ablate), "quality_ok": quality_ok,
+            "ablate": "", "quality_ok": quality_ok,
             "floors_applied": floors_applied, "spline_src": spline_src,
             "floors": floors,
             "card": card_line(dev), "device": str(dev),

@@ -1,8 +1,7 @@
 """Training-step throughput of the port (the counterpart of
 scripts/bench_train.py).
 
-    python -m parsenet_tpu_torch.cli.bench_train [seg|e2e|e2e_ablate|all]
-        [--device cuda]
+    python -m parsenet_tpu_torch.cli.bench_train [seg|e2e|all] [--device cuda]
 
 Times the segmentation step (triplet + NLL, gradient accumulation; the
 network only) and the e2e step (network -> mean-shift (K1 f32 attempts)
@@ -11,9 +10,8 @@ the backward) -> gradients -> Adam) at the reference's scales, from a
 seeded initialisation on make_shape_batch(RandomState(0)) shapes, with the
 committed decoders. One warm-up step, then the timed ones; the clock stops
 on torch.cuda.synchronize(). Prints one JSON line a bench: metrics
-torch_seg_train_shapes_per_sec, torch_e2e_train_shapes_per_sec[_<arm>] and,
-for e2e_ablate, torch_e2e_ablation_ms with cost_<arm>_ms = full - arm.
-Each detail holds the card's nvidia-smi name and power limit and the peak
+torch_seg_train_shapes_per_sec and torch_e2e_train_shapes_per_sec. Each
+detail holds the card's nvidia-smi name and power limit and the peak
 device memory.
 
 Knobs (environment), as scripts/bench_train.py reads them: BT_BATCH,
@@ -21,11 +19,11 @@ BT_ACCUM, BT_POINTS (seg: 2 x 7,000 points x accum 3; e2e: 1 x 8,000),
 BT_BF16 (the bf16 network with bf16 gathers), BT_REMAT (EdgeConvs
 recomputed in the backward), BT_MS_SAMPLES (5000), BT_FAST (the trainer's
 FAST_STEP_KNOBS, on exact kNN graphs), BT_SPLINE_STRIDE, BT_RES_STRIDE,
-BT_SIOU_STRIDE, BT_MS_ATT and BT_ABLATE (a comma list of nograd (time
-eval_step) and train_e2e.ABLATE_ARMS, plus splines (no decoders)). Refused
-with an error that names them: BT_KNN_RECALL > 0 (approx_max_k is a TPU
-primitive) and BT_MS_PALLAS=0 (the port's escalation attempts always run
-on K1 f32).
+BT_SIOU_STRIDE and BT_MS_ATT. Refused with an error that names them:
+BT_KNN_RECALL > 0 (approx_max_k is a TPU primitive), BT_MS_PALLAS=0 (the
+port's escalation attempts always run on K1 f32) and scripts/
+bench_train.py's knob of stubbed stages (bench.STAGE_COSTS), unless
+empty.
 """
 from __future__ import annotations
 
@@ -44,13 +42,9 @@ from ..fitting.spline_apply import build_spline_fit
 from ..losses.embedding import draw_triplet
 from ..models.dgcnn import PrimitivesEmbedding, init_flax_like
 from ..train.state import make_optimizer
-from ..train.train_e2e import (ABLATE_ARMS, FAST_STEP_KNOBS, draw_e2e,
-                               make_e2e_step)
+from ..train.train_e2e import FAST_STEP_KNOBS, draw_e2e, make_e2e_step
 from ..train.train_seg import make_step_fns
-from .bench import card_line
-
-E2E_ARMS = ("full", "nograd", "netgrad", "fit", "ms", "match", "fits",
-            "splines", "siou")
+from .bench import STAGE_COSTS, card_line
 
 
 def _refuse(env: Mapping[str, str]) -> None:
@@ -62,6 +56,9 @@ def _refuse(env: Mapping[str, str]) -> None:
         raise ValueError("bench_train: BT_MS_PALLAS=0 cannot be honoured by "
                          "the port: its escalation attempts always run on "
                          "K1 f32")
+    if env.get("BT_ABLATE"):
+        raise ValueError(f"bench_train: BT_ABLATE={env['BT_ABLATE']} cannot "
+                         f"be honoured by the port: {STAGE_COSTS}")
 
 
 def _model(env: Mapping[str, str], dev) -> tuple:
@@ -143,16 +140,10 @@ def bench_seg(env: Mapping[str, str] = os.environ, steps: int = 5,
 
 
 def bench_e2e(env: Mapping[str, str] = os.environ, steps: int = 3,
-              ablate=None, tag: str = "", device=None) -> dict:
+              device=None) -> dict:
     """The e2e step at BT_BATCH x BT_POINTS (5 mean-shift iterations);
-    `ablate` (default BT_ABLATE): nograd times eval_step, splines drops
-    the decoders, the rest are train_e2e.ABLATE_ARMS."""
+    `steps` timed steps after one warm-up step."""
     _refuse(env)
-    if ablate is None:
-        ablate = tuple(a for a in env.get("BT_ABLATE", "").split(",") if a)
-    bad = [a for a in ablate if a not in ("nograd", "splines") + ABLATE_ARMS]
-    if bad:
-        raise ValueError(f"bench_train: BT_ABLATE arms {bad} unknown")
     dev = entry_device(device)
     batch = int(env.get("BT_BATCH", 1))
     n_points = int(env.get("BT_POINTS", 8000))
@@ -165,15 +156,11 @@ def bench_e2e(env: Mapping[str, str] = os.environ, steps: int = 3,
         ("siou_stride", "BT_SIOU_STRIDE", 1))}
     ms_att = int(env.get("BT_MS_ATT",
                          knobs.get("ms_attempt_iterations") or 0)) or None
-    nograd = "nograd" in ablate
-    step_arms = tuple(a for a in ablate if a in ABLATE_ARMS)
     model, bf16, remat = _model(env, dev)
     opt = make_optimizer(model.parameters(), "adam")
-    spline_fit = (None if "splines" in ablate
-                  else build_spline_fit(grid=20, device=dev))
-    train_step, eval_step = make_e2e_step(
-        model, spline_fit, opt, iterations=5, ms_num_samples=ms_samples,
-        ms_attempt_iterations=ms_att, ablate=step_arms, **strides)
+    train_step, _ = make_e2e_step(
+        model, build_spline_fit(grid=20, device=dev), opt, iterations=5,
+        ms_num_samples=ms_samples, ms_attempt_iterations=ms_att, **strides)
     pts, labels, normals, prim = make_shape_batch(np.random.RandomState(0),
                                                   batch, n_points)
     x = torch.from_numpy(np.concatenate([pts, normals], -1).astype(
@@ -185,8 +172,6 @@ def bench_e2e(env: Mapping[str, str] = os.environ, steps: int = 3,
 
     def step():
         draws = draw_e2e(batch, n_points, ms_samples, gen, dev)
-        if nograd:
-            return eval_step(x, lb, pb, draws)
         return train_step(x[None], lb[None], pb[None], [draws], 1e-4)
 
     _reset_peak(dev)
@@ -197,31 +182,16 @@ def bench_e2e(env: Mapping[str, str] = os.environ, steps: int = 3,
         m = step()
     _sync(dev)
     dt = (time.perf_counter() - t0) / steps
-    detail = {"step_ms": dt * 1e3, "batch": batch, "points": n_points,
-              "bf16": bf16, "remat": remat, "ms_samples": ms_samples,
-              **strides, "ms_att": ms_att or 0, "ms_att_k1_f32": True,
-              "knn": "exact", "fast": fast, "steps": steps,
-              "ablate": ",".join(ablate),
-              "res_loss": float(m["res_loss"]),
-              "peak_mem_gib": _peak_gib(dev), "card": card_line(dev)}
-    if not nograd:
-        detail["grad_ok"] = float(m["grad_ok"])
-    return _emit({"metric": "torch_e2e_train_shapes_per_sec"
-                            + (f"_{tag}" if tag else ""),
-                  "value": batch / dt, "unit": "shapes/s", "detail": detail})
-
-
-def bench_e2e_ablate(env: Mapping[str, str] = os.environ, steps: int = 3,
-                     device=None) -> dict:
-    """Every E2E_ARMS arm timed in this process, then the cost of each
-    arm's stage: the full step's time less the arm's."""
-    ms = {tag: bench_e2e(env, steps, () if tag == "full" else (tag,), tag,
-                         device)["detail"]["step_ms"] for tag in E2E_ARMS}
-    return _emit({"metric": "torch_e2e_ablation_ms", "value": ms["full"],
-                  "unit": "ms/step",
-                  "detail": {**{f"cost_{t}_ms": ms["full"] - v
-                                for t, v in ms.items() if t != "full"},
-                             "card": card_line(entry_device(device))}})
+    return _emit({
+        "metric": "torch_e2e_train_shapes_per_sec",
+        "value": batch / dt, "unit": "shapes/s",
+        "detail": {"step_ms": dt * 1e3, "batch": batch, "points": n_points,
+                   "bf16": bf16, "remat": remat, "ms_samples": ms_samples,
+                   **strides, "ms_att": ms_att or 0, "ms_att_k1_f32": True,
+                   "knn": "exact", "fast": fast, "steps": steps,
+                   "res_loss": float(m["res_loss"]),
+                   "grad_ok": float(m["grad_ok"]),
+                   "peak_mem_gib": _peak_gib(dev), "card": card_line(dev)}})
 
 
 def main(argv=None, device=None) -> None:
@@ -229,7 +199,7 @@ def main(argv=None, device=None) -> None:
         description="Time the port's training steps "
                     "(scripts/bench_train.py's protocol).")
     ap.add_argument("which", nargs="?", default="all",
-                    choices=("seg", "e2e", "e2e_ablate", "all"))
+                    choices=("seg", "e2e", "all"))
     ap.add_argument("--device", default=device,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
@@ -237,8 +207,6 @@ def main(argv=None, device=None) -> None:
         bench_seg(device=args.device)
     if args.which in ("e2e", "all"):
         bench_e2e(device=args.device)
-    if args.which == "e2e_ablate":
-        bench_e2e_ablate(device=args.device)
 
 
 if __name__ == "__main__":

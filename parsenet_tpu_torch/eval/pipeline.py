@@ -13,15 +13,19 @@ Counterpart of parsenet_tpu/eval/pipeline.py:
   SplineNets and replace their geometric fallback, as the JAX package's
   eval_preprocess=True path does; then the residual (the spline slots' part
   one batched K3 call a shape) and the reference-protocol coverage (K3).
-  spline_fit=None is the JAX package's BENCH_ABLATE=splines arm: every
-  spline segment keeps its geometric fallback; eval_preprocess=False its
-  `preprocess` arm (each slot sampled with replacement to SPLINE_PTS
-  points, no outlier removal or upsampling); profile_skip its `coverage`
-  and `residual` arms (those sections return zeros).
+  With spline_fit=None (the spline-free path, which cli.test and
+  eval.sharded accept) every spline segment keeps its geometric fallback;
+  with eval_preprocess=False (cli.validate_reference --no_preprocess) each
+  slot is sampled with replacement to SPLINE_PTS points, without outlier
+  removal or upsampling.
 * `batch_metrics` / `run_batch`: one batch through both, as bench.py's
-  shape_pipeline does, with its BENCH_ABLATE arms (ABLATE_ARMS).
+  shape_pipeline does.
 * `coverage_metrics`: p_cov, sk_1 and sk_2 of any surface sample
   collection against the input (K3 both ways).
+
+Each entry takes a `timer` (core.profiling.StageTimer, or the benchmark's
+StageClock) and enters the stages of STAGES in their order; a stage's cost
+is read from those and from the `trace` spans inside them.
 
 Random draws (the bandwidth subset, the spline slots' packing and final
 draws, the coverage uniforms) are arguments or come from an explicit
@@ -56,13 +60,7 @@ COV_TRIM_POINTS = 2500  # input subsample the trim test runs against
 
 EVAL_SPLINE_SLOTS = 12  # spline segments decoded a shape, largest first
 SPLINE_PTS = 1536       # rows a slot with eval_preprocess=False
-# bench.py's BENCH_ABLATE sections: ms (GT labels, no clustering or SIOU),
-# siou (clustering runs, SIOU does not), recon (no reconstruction),
-# splines (no spline slots), preprocess (eval_preprocess=False), coverage
-# and residual (profile_skip)
-ABLATE_ARMS = ("ms", "siou", "recon", "splines", "preprocess", "coverage",
-               "residual")
-PROFILE_SKIP = ("coverage", "residual")
+# the timer stages of the inference entries, in the order they run
 STAGES = ("dgcnn", "mean_shift", "siou", "fits_sampling",
           "spline_preprocess", "spline_decode", "spline_residual", "residual",
           "coverage")
@@ -103,7 +101,6 @@ class SegmentationPrediction(NamedTuple):
 def predict_segmentation(model, points, normals, gt_labels, gt_prim,
                          quantile: float = 0.015, iterations: int = 50,
                          ms_num_samples: int = 5000, ms_bf16: bool = False,
-                         skip_siou: bool = False,
                          subsets: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
                          device=None,
@@ -118,8 +115,6 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
     subsets [B, S]: the bandwidth-statistic rows per shape, else drawn from
     `generator` (see ops.mean_shift._subset_sqdist). ms_bf16: bf16 operands
     in the mean-shift products, the bench's setting (f32 by default).
-    skip_siou (BENCH_ABLATE=siou): clustering runs, the SIOU matching does
-    not, and seg_iou / prim_iou are 1.
     """
     with trace("entry.predict_segmentation"):
         dev = entry_device(device)
@@ -143,9 +138,6 @@ def predict_segmentation(model, points, normals, gt_labels, gt_prim,
             labels.append(ms.labels)
             ks.append(ms.num_clusters)
         labels = torch.stack(labels)
-        if skip_siou:
-            one = torch.ones(pts.shape[0], device=dev)
-            return SegmentationPrediction(labels, pred_prim, emb, one, one, ks)
         with timer("siou"):   # draws nothing: one LAP launch for the batch
             seg_iou, prim_iou = siou_matched_segments(
                 gt_labels, labels, pred_prim, gt_prim, to_one_hot(labels))
@@ -371,26 +363,19 @@ def reconstruct_shape(points, normals, pred_labels, pred_prim,
                       uniforms: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       spline_fit=None, slot_uniforms=None,
-                      eval_preprocess: bool = True, profile_skip=(),
-                      device=None,
+                      eval_preprocess: bool = True, device=None,
                       timer: StageTimer = _NO_TIMER) -> Reconstruction:
     """Eval-mode fitting of one clustered shape.
 
     points/normals [N, 3]; pred_labels [N] cluster ids; pred_prim [N]
     per-point types. uniforms [COV_SAMPLES] for the coverage draw, else
     drawn from `generator`. spline_fit: fitting.spline_apply.SplineFit, or
-    None for the spline-free arm. slot_uniforms: (u_pack [S, N], u_draw
+    None for the spline-free path. slot_uniforms: (u_pack [S, N], u_draw
     [S, min(N, BUF)]) in [0, 1), the packing and final draws of S slots,
     or with eval_preprocess=False the with-replacement draws u [S,
     SPLINE_PTS]; else drawn from `generator` after the coverage uniforms
-    for EVAL_SPLINE_SLOTS slots. profile_skip: a subset of PROFILE_SKIP
-    whose sections (the residual with the slots' distances, the coverage)
-    are not run and return zeros.
+    for EVAL_SPLINE_SLOTS slots.
     """
-    bad = set(profile_skip) - set(PROFILE_SKIP)
-    if bad:
-        raise ValueError(f"reconstruct_shape: profile_skip {sorted(bad)} "
-                         f"not in {PROFILE_SKIP}")
     dev = entry_device(device)
     pts = _as_tensor(points, dev, torch.float32)
     nrm = _as_tensor(normals, dev, torch.float32)
@@ -416,7 +401,6 @@ def reconstruct_shape(points, normals, pred_labels, pred_prim,
             pts, nrm, pred_labels, pred_prim)
         valid = counts >= 20                              # reference drop rule
     spline_d = None
-    skip_residual = "residual" in profile_skip
     if spline_fit is not None:
         slot_uniforms = (tuple(_as_tensor(u, dev, torch.float32)
                                for u in slot_uniforms) if eval_preprocess
@@ -427,32 +411,21 @@ def reconstruct_shape(points, normals, pred_labels, pred_prim,
         with timer("spline_decode"), trace("decode.place"):
             surf, area_w = _place_slots(surf, area_w, slot_seg, slot_valid,
                                         surf_s)
-        if not skip_residual:
-            with timer("spline_residual"):
-                spline_d = _slot_distances(pts, pred_labels, slot_seg,
-                                           slot_valid, surf[slot_seg])
-    if skip_residual:
-        residual = torch.zeros((), device=dev)
-    else:
-        with timer("residual"):
-            residual = _residual(pts, pred_labels, params, geom_type, valid,
-                                 spline_d)
+        with timer("spline_residual"):
+            spline_d = _slot_distances(pts, pred_labels, slot_seg,
+                                       slot_valid, surf[slot_seg])
+    with timer("residual"):
+        residual = _residual(pts, pred_labels, params, geom_type, valid,
+                             spline_d)
     with timer("coverage"):
         return _finish_coverage(pts, surf, valid, area_w, residual,
-                                _as_tensor(uniforms, dev),
-                                "coverage" in profile_skip)
+                                _as_tensor(uniforms, dev))
 
 
-def _finish_coverage(points, surf, valid, area_w, residual, uniforms,
-                     skip: bool = False) -> Reconstruction:
+def _finish_coverage(points, surf, valid, area_w, residual,
+                     uniforms) -> Reconstruction:
     """Coverage over every valid segment's area-weighted surface samples
-    (reference segment_utils.py:83-123, test.py:153), then the result;
-    zeros with `skip`."""
-    if skip:
-        z = torch.zeros((), device=points.device)
-        return Reconstruction(surf, valid,
-                              torch.arange(K_MAX, device=points.device),
-                              residual, z, z, z, area_w)
+    (reference segment_utils.py:83-123, test.py:153), then the result."""
     flat_w = (valid[:, None] * area_w).reshape(-1)
     cov, sk_1, sk_2 = protocol_coverage(points, surf.reshape(-1, 3), flat_w,
                                         uniforms)
@@ -467,53 +440,30 @@ METRICS = ("residual", "p_cov", "sk_1", "sk_2", "seg_iou", "prim_iou")
 @torch.no_grad()
 def batch_metrics(model, points, normals, labels, prim,
                   generator: torch.Generator, ms_bf16: bool = True,
-                  spline_fit=None, ablate=(), device=None,
+                  spline_fit=None, device=None,
                   timer: StageTimer = _NO_TIMER) -> dict:
     """One batch of shapes through the main path, as bench.py's
     shape_pipeline: predict_segmentation then reconstruct_shape per shape,
-    with the spline slots of `spline_fit` (None: the spline-free arm) and
-    the BENCH_ABLATE arms in `ablate` (ABLATE_ARMS; `splines` is
-    spline_fit=None, which the caller passes). points/normals [B, N, 3],
-    labels/prim [B, N]; `generator` lives on the run's device and gives
-    every draw. Returns {metric: [B] tensor on the device} for METRICS,
-    without a host fetch, and num_clusters, a list of ints. The `ms` arm
-    reconstructs the GT segments with the network's types (seg_iou and
-    prim_iou 1, no clusters); `recon` returns zeros for the
-    reconstruction's metrics."""
+    with the spline slots of `spline_fit` (None: the spline-free path).
+    points/normals [B, N, 3], labels/prim [B, N]; `generator` lives on the
+    run's device and gives every draw. Returns {metric: [B] tensor on the
+    device} for METRICS, without a host fetch, and num_clusters, a list of
+    ints."""
     with trace("entry.batch_metrics"):
-        bad = set(ablate) - set(ABLATE_ARMS)
-        if bad:
-            raise ValueError(f"batch_metrics: ablate {sorted(bad)} not in "
-                             f"{ABLATE_ARMS}")
         dev = entry_device(device)
         pts = _as_tensor(points, dev, torch.float32)
         nrm = _as_tensor(normals, dev, torch.float32)
-        b_n = pts.shape[0]
-        if "ms" in ablate:
-            with timer("dgcnn"):
-                emb, prim_logp = model(_network_input(model, pts, nrm))
-            one = torch.ones(b_n, device=dev)
-            pred = SegmentationPrediction(_as_tensor(labels, dev, torch.int64),
-                                          torch.argmax(prim_logp, dim=-1), emb,
-                                          one, one, [0] * b_n)
-        else:
-            pred = predict_segmentation(
-                model, pts, nrm, labels, prim, ms_bf16=ms_bf16,
-                ms_num_samples=min(5000, pts.shape[1]),
-                skip_siou="siou" in ablate, generator=generator, device=dev,
-                timer=timer)
+        pred = predict_segmentation(
+            model, pts, nrm, labels, prim, ms_bf16=ms_bf16,
+            ms_num_samples=min(5000, pts.shape[1]), generator=generator,
+            device=dev, timer=timer)
         out = {"seg_iou": pred.seg_iou, "prim_iou": pred.prim_iou,
                "num_clusters": list(pred.num_clusters)}
-        if "recon" in ablate:
-            z = torch.zeros(b_n, device=dev)
-            return {**out, **{k: z for k in METRICS[:4]}}
-        skip = tuple(a for a in ablate if a in PROFILE_SKIP)
         recs = [reconstruct_shape(pts[b], nrm[b], pred.labels[b],
                                   pred.pred_prim[b], generator=generator,
-                                  spline_fit=spline_fit,
-                                  eval_preprocess="preprocess" not in ablate,
-                                  profile_skip=skip, device=dev, timer=timer)
-                for b in range(b_n)]
+                                  spline_fit=spline_fit, device=dev,
+                                  timer=timer)
+                for b in range(pts.shape[0])]
         for k in METRICS[:4]:
             out[k] = torch.stack([getattr(r, k) for r in recs])
         return out
@@ -521,13 +471,13 @@ def batch_metrics(model, points, normals, labels, prim,
 
 def run_batch(model, points, normals, labels, prim,
               generator: torch.Generator, ms_bf16: bool = True,
-              spline_fit=None, ablate=(), device=None,
+              spline_fit=None, device=None,
               timer: StageTimer = _NO_TIMER) -> dict:
     """`batch_metrics` with every metric fetched to the host: per-shape
     lists of METRICS and num_clusters."""
     out = batch_metrics(model, points, normals, labels, prim, generator,
                         ms_bf16=ms_bf16, spline_fit=spline_fit,
-                        ablate=ablate, device=device, timer=timer)
+                        device=device, timer=timer)
     return {k: (v if k == "num_clusters" else v.tolist())
             for k, v in out.items()}
 

@@ -37,8 +37,7 @@ from ..core.checkpoint import load_npz_params, save_npz_params
 from ..core.config import Config, load_config
 from ..core.logging import setup_logging, snapshot_config
 from ..core.profiling import StageTimer, trace
-from ..fitting.pipeline import ABLATE_ARMS as FIT_ARMS
-from ..fitting.pipeline import FittingLossOut, fitting_loss_shape
+from ..fitting.pipeline import fitting_loss_shape
 from ..fitting.spline_apply import trained_spline_fit
 from ..losses.embedding import draw_triplet, primitive_nll_loss, triplet_loss
 from ..models.dgcnn import (PrimitivesEmbedding, init_flax_like,
@@ -62,10 +61,6 @@ MS_NUM_SAMPLES = 2048   # the mean-shift bandwidth subset (reference)
 SAVE_EVERY = 2000       # optimizer steps between periodic saves
 METRICS = ("embed_loss", "prim_loss", "res_loss", "geom_loss", "spline_loss",
            "seg_iou", "prim_iou", "clusters")
-# make_e2e_step's stage-costing arms: netgrad (the network's outputs
-# detached: the fitting loss's backward still runs down to them, the
-# network's does not) and fit (no fitting loss), plus fitting_loss_shape's
-ABLATE_ARMS = ("netgrad", "fit") + FIT_ARMS
 
 
 class E2EDraws(NamedTuple):
@@ -98,7 +93,7 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
                   spline_stride: int = 2, residual_stride: int = 1,
                   siou_stride: int = 1,
                   ms_attempt_iterations: Optional[int] = None,
-                  ablate=(), mesh=None):
+                  mesh=None):
     """(train_step, eval_step) over `model`, the frozen `spline_fit`
     (fitting.spline_apply.SplineFit) and `optimizer`.
 
@@ -109,41 +104,21 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
     step; it returns the mean metrics and grad_ok. eval_step(x [B, N, C],
     labels, prim, draws) returns one batch's metrics without gradient (its
     accepted mean-shift re-run on K1 f32). The strides and
-    ms_attempt_iterations are fitting_loss_shape's. ablate: a subset of
-    ABLATE_ARMS, for cli.bench_train only. With a parallel.mesh.Mesh the
-    batches and draws are this rank's slices of global ones and both
-    return the global batch's metrics (train.state.accumulated_step; every
-    e2e metric but the triplet loss is a mean over shapes)."""
-    bad = set(ablate) - set(ABLATE_ARMS)
-    if bad:
-        raise ValueError(f"make_e2e_step: ablate {sorted(bad)} not in "
-                         f"{ABLATE_ARMS}")
+    ms_attempt_iterations are fitting_loss_shape's; `timer` splits a
+    step into STAGES. With a parallel.mesh.Mesh the batches and draws are
+    this rank's slices of global ones and both return the global batch's
+    metrics (train.state.accumulated_step; every e2e metric but the
+    triplet loss is a mean over shapes)."""
     params = list(model.parameters())
     fit_kw = dict(spline_fit=spline_fit, quantile=quantile,
                   iterations=iterations, lamb=lamb,
                   ms_num_samples=ms_num_samples, spline_stride=spline_stride,
                   residual_stride=residual_stride, siou_stride=siou_stride,
-                  ms_attempt_iterations=ms_attempt_iterations,
-                  ablate=tuple(a for a in ablate if a in FIT_ARMS))
-
-    def fitting(points, normals, emb, labels, prim, pred_prim, draws,
-                timer):
-        if "fit" in ablate:
-            z = torch.zeros((), device=emb.device)
-            return [FittingLossOut(z + torch.mean(emb) * 0.0, z, z, z, z, 0)
-                    for _ in range(emb.shape[0])]
-        return [fitting_loss_shape(
-            points[b], normals[b], emb[b], labels[b], prim[b],
-            subset=None if draws.subset is None else draws.subset[b],
-            pred_prim_per_point=pred_prim[b], timer=timer, **fit_kw)
-            for b in range(emb.shape[0])]
+                  ms_attempt_iterations=ms_attempt_iterations)
 
     def loss_fn(x, labels, prim, draws: E2EDraws, timer):
         with timer("dgcnn_forward"):
             emb, prim_logp = model(x)
-            if "netgrad" in ablate:
-                emb = emb.detach().requires_grad_()
-                prim_logp = prim_logp.detach().requires_grad_()
         with timer("embed_losses"):
             e_loss = triplet_loss(emb, labels, draws.u_points, draws.u_pairs,
                                   mesh=mesh)
@@ -151,8 +126,11 @@ def make_e2e_step(model: PrimitivesEmbedding, spline_fit,
             pred_prim = torch.argmax(prim_logp, dim=-1)
         points = x[..., :3]
         normals = x[..., 3:6] if with_normals else points
-        outs = fitting(points, normals, emb, labels, prim, pred_prim, draws,
-                       timer)
+        outs = [fitting_loss_shape(
+            points[b], normals[b], emb[b], labels[b], prim[b],
+            subset=None if draws.subset is None else draws.subset[b],
+            pred_prim_per_point=pred_prim[b], timer=timer, **fit_kw)
+            for b in range(emb.shape[0])]
         res_loss = torch.mean(torch.stack([o.loss for o in outs]))
         metrics = {"embed_loss": e_loss, "prim_loss": p_loss,
                    "res_loss": res_loss}

@@ -4,8 +4,7 @@ bench.py: the weights' resolution (an explicit BENCH_PARAMS beats a decoy
 checkpoint; a missing or incompatible one is an error), the knobs it
 refuses, the watchdog's zero line, and a reduced run's JSON line (256
 points, batch 2, 1 timed batch, 1 spline slot a shape instead of 12: the
-decoders' CPU cost is a fixed 1,800 rows a slot). The BENCH_ABLATE arms'
-reduced runs are in tests/test_torch_bench_arms*.py.
+decoders' CPU cost is a fixed 1,800 rows a slot).
 """
 import json
 import os
@@ -93,21 +92,32 @@ def test_npz_fallback_then_seeded_init(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("env, knob", [
-    ({"BENCH_STREAM": "c"}, "BENCH_STREAM"),
-    ({"BENCH_SHARD": "1", "BENCH_ABLATE": "ms"}, "BENCH_SHARD"),
-    ({"BENCH_PREFLIGHT": "1"}, "BENCH_PREFLIGHT"),
-    ({"PARSENET_KNN_RECALL": "0.85"}, "PARSENET_KNN_RECALL"),
-    ({"BENCH_ABLATE": "ms,nope"}, "BENCH_ABLATE"),
+    pytest.param({"BENCH_STREAM": "c"}, "BENCH_STREAM",
+                 id="env0-BENCH_STREAM"),
+    pytest.param({"BENCH_PREFLIGHT": "1"}, "BENCH_PREFLIGHT",
+                 id="env2-BENCH_PREFLIGHT"),
+    pytest.param({"PARSENET_KNN_RECALL": "0.85"}, "PARSENET_KNN_RECALL",
+                 id="env3-PARSENET_KNN_RECALL"),
+    pytest.param({"BENCH_ABLATE": "ms"}, "BENCH_ABLATE",
+                 id="env4-BENCH_ABLATE"),
 ])
 def test_knobs_the_port_cannot_honour_raise(env, knob):
-    with pytest.raises(ValueError, match=knob):
+    with pytest.raises(ValueError, match=knob) as err:
         bench.settings(env)
+    if knob == "BENCH_ABLATE":   # stage costs come from the timer and spans
+        assert "benchmark/run.py --trace 1" in str(err.value)
+
+
+@pytest.mark.parametrize("knob", ["BENCH_ABLATE", "PARSENET_KNN_RECALL"])
+def test_an_empty_refused_knob_asks_for_nothing(knob):
+    """An empty value, as the JAX bench's full-path runs pass it, is the
+    unset knob."""
+    assert bench.settings({knob: ""}) == bench.settings({})
 
 
 def test_settings_defaults_and_stream_b():
-    cfg = bench.settings({"BENCH_STREAM": "b", "BENCH_SHARD": "0",
-                          "BENCH_ABLATE": "ms,coverage"})
-    assert cfg["stream"] == "b" and cfg["ablate"] == ("ms", "coverage")
+    cfg = bench.settings({"BENCH_STREAM": "b", "BENCH_SHARD": "0"})
+    assert cfg["stream"] == "b" and "ablate" not in cfg
     assert (cfg["points"], cfg["batch"], cfg["iters"]) == (10000, 4, 8)
     assert cfg["ms_bf16"] and not cfg["dgcnn_bf16"]
 

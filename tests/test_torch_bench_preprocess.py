@@ -1,10 +1,10 @@
-"""Port parity: reconstruct_shape(eval_preprocess=False), the bench's
-BENCH_ABLATE=preprocess arm, against the JAX package's on
-test_torch_spline_slots's staged shape 0 (2,048 points, 4 slots, the
-shipped decoders), the JAX package's with-replacement uniforms handed to
-the port: the sampled slot points equal, the metrics at the slot test's
-tolerances (residual and p_cov 1e-3 relative, sk_1 and sk_2 1e-3
-absolute).
+"""Port parity: reconstruct_shape(eval_preprocess=False), the spline
+slots without preprocessing that cli.validate_reference --no_preprocess
+runs, against the JAX package's on test_torch_spline_slots's staged shape
+0 (2,048 points, 4 slots, the shipped decoders), the JAX package's
+with-replacement uniforms handed to the port: the sampled slot points
+equal, the metrics at the slot test's tolerances (residual and p_cov 1e-3
+relative, sk_1 and sk_2 1e-3 absolute).
 """
 import jax
 import jax.numpy as jnp
@@ -15,10 +15,11 @@ from parsenet_tpu.eval import pipeline as jp
 from parsenet_tpu.train.train_e2e import build_spline_fit as jax_spline_fit
 from parsenet_tpu_torch.eval import pipeline as tp
 from parsenet_tpu_torch.fitting import spline_apply as sa
-from test_torch_bench_parity import TOL
 from test_torch_spline_slots import _staged_inputs
 
 torch.set_num_threads(1)
+TOL = {"residual": {"rtol": 1e-3}, "p_cov": {"rtol": 1e-3},
+       "sk_1": {"rtol": 0, "atol": 1e-3}, "sk_2": {"rtol": 0, "atol": 1e-3}}
 
 
 def test_eval_preprocess_false_matches_jax():

@@ -121,7 +121,7 @@ def test_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
     from parsenet_tpu_torch.cli import bench, bench_train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main([])
-    for which in ("seg", "e2e", "e2e_ablate"):
+    for which in ("seg", "e2e"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_train.main([which])
     from parsenet_tpu_torch.eval.metrics import iou_from_embeddings

@@ -138,10 +138,8 @@ def test_sums_match_the_jax_mesh_with_its_draws():
 
 
 def test_bench_shard_knobs():
-    """BENCH_SHARD=1: exclusive with BENCH_ABLATE; BENCH_BATCH must divide
-    by the ranks; with one rank it is the unsharded run."""
-    with pytest.raises(ValueError, match="BENCH_SHARD"):
-        tbench.settings({"BENCH_SHARD": "1", "BENCH_ABLATE": "ms"})
+    """BENCH_SHARD=1: BENCH_BATCH must divide by the ranks; with one rank
+    it is the unsharded run."""
     with pytest.raises(ValueError, match="BENCH_BATCH"):
         tbench.settings({"BENCH_SHARD": "1", "WORLD_SIZE": "3"})
     assert tbench.settings({"BENCH_SHARD": "1", "WORLD_SIZE": "2"})["shard"]

@@ -6,7 +6,8 @@ optimizer step). `request(entry, dev, n_points, k)` returns a callable
 that runs one request from the same start every call: the same shapes,
 draws and weights (the trainers' weights copied back and their
 optimizer's state dropped), so two calls make the same host
-synchronisations. Shapes and spline patches from data.synthetic; the
+synchronisations; a `timer` given is handed to the entry or the step.
+Shapes and spline patches from data.synthetic; the
 shipped weights of params/ for the e2e network and the spline decoders."""
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import os
 import numpy as np
 import torch
 
+from parsenet_tpu_torch.core.profiling import StageTimer
 from parsenet_tpu_torch.data.synthetic import make_shape_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,7 +41,8 @@ def _generator(dev, seed: int = 3) -> torch.Generator:
     return gen
 
 
-def request(entry: str, dev: torch.device, n_points: int, k: int):
+def request(entry: str, dev: torch.device, n_points: int, k: int,
+            timer=StageTimer(False)):
     """A callable running one request of `entry` on `dev`: 2 shapes of
     n_points (the trainers: 2 micro-batches), the network's kNN k."""
     if entry == "predict_segmentation":
@@ -47,7 +50,7 @@ def request(entry: str, dev: torch.device, n_points: int, k: int):
         net, (pts, labels, normals, prim) = _net(dev, k), _shapes(2, n_points)
         return lambda: pipeline.predict_segmentation(
             net, pts, normals, labels, prim, generator=_generator(dev),
-            device=dev)
+            device=dev, timer=timer)
     if entry == "batch_metrics":
         from parsenet_tpu_torch.eval import pipeline
         from parsenet_tpu_torch.fitting.spline_apply import build_spline_fit
@@ -55,13 +58,13 @@ def request(entry: str, dev: torch.device, n_points: int, k: int):
         fit = build_spline_fit(device=dev)
         return lambda: pipeline.batch_metrics(
             net, pts, normals, labels, prim, _generator(dev), ms_bf16=True,
-            spline_fit=fit, device=dev)
+            spline_fit=fit, device=dev, timer=timer)
     if entry == "seg_train_step":
-        return _seg_step(dev, n_points, k)
+        return _seg_step(dev, n_points, k, timer)
     if entry == "e2e_train_step":
-        return _e2e_step(dev, n_points, k)
+        return _e2e_step(dev, n_points, k, timer)
     if entry == "spline_train_step":
-        return _spline_step(dev, n_points, k)
+        return _spline_step(dev, n_points, k, timer)
     raise ValueError(f"unknown entry {entry!r}")
 
 
@@ -88,7 +91,7 @@ def _from_the_start(model, opt, step):
     return run
 
 
-def _seg_step(dev, n_points, k):
+def _seg_step(dev, n_points, k, timer):
     from parsenet_tpu_torch.losses.embedding import draw_triplet
     from parsenet_tpu_torch.models import dgcnn
     from parsenet_tpu_torch.train import state, train_seg
@@ -101,10 +104,10 @@ def _seg_step(dev, n_points, k):
     train_step, _ = train_seg.make_step_fns(model, opt)
     u_pts, u_pairs = draw_triplet(2, _generator(dev), dev)
     return _from_the_start(model, opt, lambda: train_step(
-        x, labels, prim, u_pts[:, None], u_pairs[:, None], 1e-3))
+        x, labels, prim, u_pts[:, None], u_pairs[:, None], 1e-3, timer))
 
 
-def _e2e_step(dev, n_points, k):
+def _e2e_step(dev, n_points, k, timer):
     from parsenet_tpu_torch.fitting.spline_apply import build_spline_fit
     from parsenet_tpu_torch.train import state, train_e2e
     x, labels, prim = _batch(dev, n_points)
@@ -117,10 +120,10 @@ def _e2e_step(dev, n_points, k):
     draws = [train_e2e.draw_e2e(1, n_points, subset, gen, dev)
              for _ in range(2)]
     return _from_the_start(model, opt, lambda: train_step(
-        x, labels, prim, draws, 1e-4))
+        x, labels, prim, draws, 1e-4, timer))
 
 
-def _spline_step(dev, n_points, k):
+def _spline_step(dev, n_points, k, timer):
     """The closed SplineNet's fed step on 2 patches of n_points, every
     call from a fresh feed of the same batch and a fresh RandomState (the
     trainer's kNN k is its own, 10)."""
@@ -139,7 +142,7 @@ def _spline_step(dev, n_points, k):
         fed = train_spline.make_fed_step(
             train_step, itertools.repeat(batch), np.random.RandomState(0),
             (n_points,), dev)
-        return fed(1e-3, 0.9)
+        return fed(1e-3, 0.9, timer)
     return _from_the_start(model, opt, step)
 
 
