@@ -1548,9 +1548,9 @@ def main():
             serialized = sorted(set(re.findall(r"\(C751\d\)", log)))
             report[f"{kname}_ptxas"] = {"spills": spills,
                                         "serialized": serialized}
-            check(not spills and not serialized,
-                  f"{src}: no spills and no C751x \"wgmma serialized\" note "
-                  f"from ptxas ({spills}, {serialized})")
+            check("registers" in log and not spills and not serialized,
+                  f"{src}: ptxas's report read, no spills and no C751x "
+                  f"\"wgmma serialized\" note ({spills}, {serialized})")
 
     phase(wgmma_in_sass)
 
@@ -1569,6 +1569,19 @@ def main():
                   "a pair", flush=True)
 
     phase(k3_sass)
+
+    def k6_build():
+        # K6's three instances: registers, and no spill
+        log = kernels.BUILD_LOG.get("K6", "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [ln.strip() for ln in log.splitlines()
+                  if re.search(r"[1-9]\d* bytes spill", ln)]
+        report["K6_ptxas"] = {"registers": regs, "spills": spills}
+        check(bool(regs) and not spills,
+              f"knn_graph.cu: no spills from ptxas (registers {regs}, "
+              f"{spills})")
+
+    phase(k6_build)
 
     # ---- shared inputs: stream a exactly as bench.py builds it
     n_batch, warmup, iters, n_pts = 4, 2, 8, 10000
@@ -3719,6 +3732,64 @@ def main():
             "bound_by": "bytes", "library_ms": k4["library_ms"],
             "device_ms": k4["device_ms"], "checked_ms": k4["checked_ms"],
             "library_device_ms": k4["library_device_ms"], "id": "K4"})
+
+        # K6: the three graphs of a 4 x 10,000 request (stream a's first
+        # batch: the points and normals, then the network's x1 and x2),
+        # eager and as CUDA-graph device time; the plain route (score
+        # products in chunks + torch.topk) is its yardstick. Bound: 2 N^2 C
+        # FFMA a cloud at the FP32 rate (0.191 ms a 64-channel graph)
+        from parsenet_tpu_torch.ops import knn as knn_ops
+        x4 = torch.from_numpy(np.concatenate([pts[:4], normals[:4]],
+                                             -1)).to(dev)
+        graphs, entry = [], knn_ops.knn_graph
+
+        def record(v, k, *, points_normals=False):
+            graphs.append((v.detach().contiguous(), points_normals))
+            return entry(v, k, points_normals=points_normals)
+        knn_ops.knn_graph = record
+        try:
+            with torch.no_grad():
+                model(x4)
+        finally:
+            knn_ops.knn_graph = entry
+        k6 = {key: 0.0 for key in ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "library_device_ms",
+                                   "bound_ms")}
+        per_graph = []
+        for v, pn in graphs:
+            b, n, c = v.shape
+            fn = lambda: kernels.knn_graph(v, 80, pn)   # noqa: E731
+            lib = lambda: (knn_ops.knn_points_normals if pn   # noqa: E731
+                           else knn_ops.knn)(v, 80, 80)
+            same = torch.equal(fn(), lib())
+            check(same, f"K6 {b}x{n}x{c} ({'joint' if pn else 'squared'} "
+                  "metric): the plain route's graph, index for index")
+            t = {"shape": [b, n, c], "joint": pn, "same": same,
+                 "ms": cuda_ms(fn, 10), "device_ms": graph_ms(fn, 5),
+                 "plain_ms": cuda_ms(lambda: kernels.knn_graph_plain(
+                     v, 80, pn), 2),
+                 "library_ms": cuda_ms(lib, 5),
+                 "library_device_ms": graph_ms(lib, 2),
+                 "bound_ms": 1000.0 * 2 * b * n * n * c / PEAK_FP32}
+            print(f"[6 times] K6 {b}x{n}x{c} "
+                  f"({'joint' if pn else 'squared'}): kernel {t['ms']:.3f} "
+                  f"ms eager, {t['device_ms']:.3f} ms device; plain route "
+                  f"{t['library_ms']:.3f} / {t['library_device_ms']:.3f} "
+                  f"ms; plain version {t['plain_ms']:.3f} ms; bound "
+                  f"{t['bound_ms']:.4f} ms (operations)", flush=True)
+            per_graph.append(t)
+            for key in k6:
+                k6[key] += t[key]
+        print(f"  K6 a request's three graphs: {k6['ms']:.3f} ms eager, "
+              f"{k6['device_ms']:.3f} ms device; plain route "
+              f"{k6['library_ms']:.3f} / {k6['library_device_ms']:.3f} ms; "
+              f"bound {k6['bound_ms']:.4f} ms", flush=True)
+        entries.append({
+            "name": "knn_graph", "route": "cuda",
+            "source": "parsenet_tpu_torch/csrc/knn_graph.cu",
+            "replaces": None, "launches": launches["K6"] + bench_l["K6"],
+            "launches_bench": bench_l["K6"], **k6, "bound_by": "operations",
+            "graphs": per_graph, "id": "K6"})
 
         # K5: one step at 10,000 x 128 (no program path runs it); its
         # yardstick is one f32 SDPA step of the same queries and keys; its

@@ -170,13 +170,10 @@ class DGCNNEncoder(nn.Module):
     def forward(self, x: torch.Tensor):
         # x: [B, N, C_in] -> (global [B, 1024], skip [B, N, 256]) in dtype;
         # the kNN graphs are built outside the recomputed EdgeConvs
-        if self.mode == 5:
-            idx = knn_ops.knn_points_normals(x, k1=self.k, k2=self.k)
-        else:
-            idx = knn_ops.knn(x, k1=self.k, k2=self.k)
+        idx = knn_ops.knn_graph(x, self.k, points_normals=self.mode == 5)
         x1 = self._edge(self.conv1, x, idx)
-        x2 = self._edge(self.conv2, x1, knn_ops.knn(x1, k1=self.k, k2=self.k))
-        x3 = self._edge(self.conv3, x2, knn_ops.knn(x2, k1=self.k, k2=self.k))
+        x2 = self._edge(self.conv2, x1, knn_ops.knn_graph(x1, self.k))
+        x3 = self._edge(self.conv3, x2, knn_ops.knn_graph(x2, self.k))
         feats = torch.cat([x1, x2, x3], dim=-1)              # [B, N, 256]
         h = norm_relu(self.bnmlp1, dense(self.mlp1, feats, self.dtype),
                       self.dtype)

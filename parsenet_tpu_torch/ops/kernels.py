@@ -18,6 +18,9 @@ CUDA C++ source for sm_90a under `csrc/`:
   K4 min_sqdist_bwd.cu  <- the backward of min_sqdist_fused's custom VJP
   K5 ms_iterations_tf32.cu <- mean_shift_step_pallas, K1 f32's kernel
                           for one iteration with separate queries
+  K6 knn_graph.cu       <- no TPU kernel (XLA's score product and top-k):
+                          the DGCNN's exact k-NN graphs, scores and top-k
+                          on chip (knn_graph; ops/knn.knn_graph routes)
 
 `build_kernels` compiles every source with nvcc into a plain-C shared
 library under `csrc/build/` (one nvcc per source, all started together; a
@@ -28,7 +31,7 @@ it. `LAUNCHES` counts kernel launches, one per wrapper call that launches
 (K3's entry adds its merge pass, when its plan splits the targets, as part
 of the same launch).
 
-K1, K2, K5 and the raw K3 have no backward: given an input that requires
+K1, K2, K5, K6 and the raw K3 have no backward: given an input that requires
 grad while grad mode is on they raise, on every device, instead of
 returning a result with no `grad_fn`. The differentiable min-sqdist is
 `MinSqdist` (K3 forward, K4 backward).
@@ -50,7 +53,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"K1": "ms_iterations_tf32.cu", "K1tc": "ms_iterations_tc.cu",
            "K2": "auction_assign.cu", "K3": "min_sqdist.cu",
-           "K4": "min_sqdist_bwd.cu"}
+           "K4": "min_sqdist_bwd.cu", "K6": "knn_graph.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -77,6 +80,7 @@ ENTRIES = {
            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "K5": ("K1", "ms_iterations_tf32",
            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "K6": ("K6", "knn_graph", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}
@@ -109,13 +113,18 @@ def _nvcc() -> str:
 
 def build_kernels() -> float:
     """Compile and load every kernel library; returns the seconds taken.
-    A failed build raises with nvcc's output."""
+    A failed build raises with nvcc's output. nvcc's output (ptxas's
+    registers and spills) is kept beside each library, as `.log`, and
+    read into BUILD_LOG also where an earlier process built it."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in SOURCES:
         path = _lib_path(name)
         if name in _LIBS or path.exists():
+            log = path.with_suffix(".log")
+            if name not in BUILD_LOG and log.exists():
+                BUILD_LOG[name] = log.read_text()
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -128,6 +137,9 @@ def build_kernels() -> float:
         if proc.returncode != 0:
             failed.append(f"{SOURCES[name]}:\n{BUILD_LOG[name]}")
         else:
+            log = tmp.with_suffix(".log")
+            log.write_text(BUILD_LOG[name])
+            os.replace(log, path.with_suffix(".log"))
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("kernels: nvcc failed\n" + "\n".join(failed))
@@ -1112,3 +1124,94 @@ class MinSqdist(torch.autograd.Function):
         dq, dx = _min_sqdist_bwd(q, x, idx, g.contiguous())
         return (dq if ctx.needs_input_grad[0] else None,
                 dx if ctx.needs_input_grad[1] else None, None)
+
+
+# ---------------------------------------------------------------------------
+# K6: the DGCNN's exact k-NN graphs
+# ---------------------------------------------------------------------------
+
+KNN_GRAPH_MAX_K = 128   # knn_graph.cu's KP: the longest row it keeps
+KNN_GRAPH_TILE = 64     # its BN and BM: candidates a tile, rows a block
+# (points_normals, channels) of the kernel's instances: xyz or 64 features
+# on the squared distance, points and normals on the joint metric
+KNN_GRAPH_WIDTHS = ((False, 3), (False, 64), (True, 6))
+
+
+def knn_graph_plain(x: torch.Tensor, k: int,
+                    points_normals: bool = False) -> torch.Tensor:
+    """K6's function in plain PyTorch: x [B, N, C] f32 -> [B, N, k] int64,
+    the scores of `knn.knn` (or `knn.knn_points_normals`), chunk by chunk,
+    and of each row the k largest in K6's order, score descending and
+    equal scores index ascending (`knn.topk_first`'s keys), a NaN of
+    either sign above every number and equal to any other NaN, as
+    torch.topk ranks it. Where no two scores of a row tie at its k-th,
+    the graph is `knn`'s."""
+    from . import knn as knn_ops
+    n = x.shape[1]
+    c = knn_ops._row_chunks(n)
+    if points_normals:
+        p, nrm = x[..., :3], x[..., 3:6]
+        pp = torch.sum(p * p, dim=-1)[:, None, :]
+        pt, nt = p.transpose(1, 2), nrm.transpose(1, 2)
+    else:
+        xx = torch.sum(x * x, dim=-1)[:, None, :]
+        xt = x.transpose(1, 2)
+    rows = []
+    for s in range(0, n, c):
+        if points_normals:
+            qp, qn = p[:, s:s + c], nrm[:, s:s + c]
+            d_p = torch.sum(qp * qp, -1, keepdim=True) - 2.0 * (qp @ pt) + pp
+            score = -(d_p * (1.0 + (2.0 - 2.0 * (qn @ nt))))
+        else:
+            q = x[:, s:s + c]
+            score = 2.0 * (q @ xt) - torch.sum(q * q, -1)[..., None] - xx
+        # one NaN, +NaN: topk_first ranks it above +inf
+        score = score.masked_fill(score.isnan(), float("nan"))
+        rows.append(knn_ops.topk_first(score, k))
+    return torch.cat(rows, dim=1)
+
+
+def knn_graph_fits(x: torch.Tensor, k: int,
+                   points_normals: bool = False) -> bool:
+    """Whether K6 takes this graph: f32 [B, N, C] with (points_normals, C)
+    one of KNN_GRAPH_WIDTHS and 1 <= k <= min(N, KNN_GRAPH_MAX_K)."""
+    return (x.dtype == torch.float32 and x.dim() == 3
+            and (points_normals, x.shape[2]) in KNN_GRAPH_WIDTHS
+            and 1 <= k <= min(x.shape[1], KNN_GRAPH_MAX_K))
+
+
+def knn_graph(x: torch.Tensor, k: int,
+              points_normals: bool = False) -> torch.Tensor:
+    """K6. x [B, N, C] f32 contiguous -> the k nearest neighbours of each
+    point of each cloud, [B, N, k] int64, in one launch: by squared
+    distance for C = 3 or 64, by the joint point/normal metric for C = 6
+    with points_normals (`knn.knn_points_normals`). The scores are the
+    plain route's bit for bit, the order score descending and, among equal
+    scores, index ascending (a NaN above every number): torch.topk's on
+    the card at k = 80 (the plain version, `knn_graph_plain`, for CPU
+    tensors). No backward."""
+    if not _on_cuda("knn_graph", x):
+        return knn_graph_plain(x, k, points_normals)
+    _check("knn_graph x", x, torch.float32, 3)
+    if not knn_graph_fits(x, k, points_normals):
+        raise ValueError(f"knn_graph: kernel takes f32 [B, N, C] with "
+                         f"(points_normals, C) in {KNN_GRAPH_WIDTHS} and "
+                         f"1 <= k <= min(N, {KNN_GRAPH_MAX_K}), got "
+                         f"{tuple(x.shape)}, points_normals={points_normals}"
+                         f", k={k}")
+    b, n, c = x.shape
+    npad = -(-n // KNN_GRAPH_TILE) * KNN_GRAPH_TILE
+    xt = x.new_zeros((b, c, npad))
+    xt[:, :, :n] = x.transpose(1, 2)
+    p = x[..., :3] if points_normals else x
+    # +inf past n: a padded candidate scores -inf and is never taken
+    nrm = x.new_full((b, npad), float("inf"))
+    nrm[:, :n] = torch.sum(p * p, dim=-1)
+    # each row's running list of its best keys, KNN_GRAPH_MAX_K 8-byte
+    # words a row of every block (scratch the kernel sets up itself)
+    lists = torch.empty((b, npad, KNN_GRAPH_MAX_K), dtype=torch.int64,
+                        device=x.device)
+    idx = torch.empty((b, n, k), dtype=torch.int64, device=x.device)
+    _launch("K6", xt.data_ptr(), nrm.data_ptr(), lists.data_ptr(),
+            idx.data_ptr(), b, n, npad, c, k, int(points_normals))
+    return idx

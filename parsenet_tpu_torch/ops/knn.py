@@ -15,6 +15,14 @@ Two metrics:
     model (reference: src/PointNet.py:29-69).
 k2 > k1 gives the reference's dilated selection (top-k2, stride k2 // k1).
 
+`knn_graph` is the DGCNN's entry for its three graphs a forward: on the
+card, f32 at the kernel's widths and k <= 128, it is one K6 launch
+(kernels.knn_graph: scores and exact top-k on chip, no score matrix in
+device memory, torch.topk's graph; equal scores in index order, as
+lax.top_k orders them); everything else (CPU tensors, bf16 features,
+other widths) takes `knn` / `knn_points_normals` as they are. It builds
+no dilated graph: that is `knn`'s k2.
+
 bf16 features (the bf16 network's second and third graphs) are scored as
 the JAX package scores them: the inner products of the bf16 values taken
 in f32 (exact products, f32 sums: its preferred_element_type=f32), the
@@ -27,6 +35,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..core.profiling import trace
+from . import kernels
 
 CHUNK_TARGET = 2500
 
@@ -111,6 +122,22 @@ def knn_points_normals(x: torch.Tensor, k1: int,
         d_n = 2.0 - 2.0 * (qn @ nt)
         rows.append(_topk_neighbors(-(d_p * (1.0 + d_n)), k1, k2))
     return torch.cat(rows, dim=1)
+
+
+@torch.no_grad()
+def knn_graph(x: torch.Tensor, k: int, *,
+              points_normals: bool = False) -> torch.Tensor:
+    """The DGCNN's kNN graph, x [B, N, C] -> [B, N, k] int64: the joint
+    point/normal metric with points_normals, else squared distance. K6
+    on the card where `kernels.knn_graph_fits`, else `knn_points_normals`
+    / `knn`. One `knn.graph` span a graph."""
+    with trace("knn.graph"):
+        if x.device.type == "cuda" and kernels.knn_graph_fits(
+                x, k, points_normals):
+            return kernels.knn_graph(x.contiguous(), k, points_normals)
+        if points_normals:
+            return knn_points_normals(x, k)
+        return knn(x, k)
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
