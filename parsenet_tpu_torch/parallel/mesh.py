@@ -13,7 +13,10 @@ Every reduction of the data-parallel trainers and the sharded inference
 goes through this module: `Mesh.all_sum`, `all_mean`, `all_reduce_grads`
 and `gather_batch` (autograd through the gather); with one rank each is
 the identity on the values, so a group of one computes what the ungrouped
-code does.
+code does. Each collective is one span while a profiler records
+(core.profiling.trace): `dp.all_sum`, `dp.all_mean`, `dp.all_reduce_grads`
+(its flatten and unflatten copies included) and `dp.gather_rows` (the
+gather's forward, and its backward's all-reduce).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.guards import entry_device
+from ..core.profiling import trace
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -57,36 +61,43 @@ class Mesh:
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of t over every rank, as a new tensor (no gradient)."""
-        out = t.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
-        return out
+        with trace("dp.all_sum"):
+            return _summed(t)
 
     def all_mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean of t over the ranks (no gradient)."""
-        return self.all_sum(t) * (1.0 / self.world)
+        with trace("dp.all_mean"):
+            return _summed(t) * (1.0 / self.world)
 
     def all_reduce_grads(self, params) -> None:
         """Every parameter's gradient becomes the mean over the ranks of
         its gradients: one all-reduce of them all, flattened, then 1 / world
         (a missing gradient counts as zeros and is filled in)."""
         params = list(params)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        flat = torch.cat([p.grad.reshape(-1) for p in params])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat.mul_(1.0 / self.world)
-        off = 0
-        for p in params:
-            n = p.grad.numel()
-            p.grad.copy_(flat[off:off + n].view_as(p.grad))
-            off += n
+        with trace("dp.all_reduce_grads"):
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat.mul_(1.0 / self.world)
+            off = 0
+            for p in params:
+                n = p.grad.numel()
+                p.grad.copy_(flat[off:off + n].view_as(p.grad))
+                off += n
 
     def close(self) -> None:
         """Destroy the group where make_mesh created it."""
         if self.owns and dist.is_initialized():
             dist.destroy_process_group()
             self.owns = False
+
+
+def _summed(t: torch.Tensor) -> torch.Tensor:
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    return out
 
 
 class _GatherRows(torch.autograd.Function):
@@ -96,15 +107,17 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh):
         ctx.rank = mesh.rank
-        out = [torch.empty_like(t) for _ in range(mesh.world)]
-        dist.all_gather(out, t.contiguous())
-        return torch.stack(out)
+        with trace("dp.gather_rows"):
+            out = [torch.empty_like(t) for _ in range(mesh.world)]
+            dist.all_gather(out, t.contiguous())
+            return torch.stack(out)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM)
-        return grad[ctx.rank], None
+        with trace("dp.gather_rows"):
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, op=dist.ReduceOp.SUM)
+            return grad[ctx.rank], None
 
 
 def gather_batch(mesh: Optional[Mesh], t: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,9 @@
 tests: eval.pipeline.predict_segmentation and batch_metrics (a batch of
 shapes), train_seg.make_step_fns(...).train_step, train_e2e.
 make_e2e_step(...).train_step and train_spline.make_fed_step(...) (one
-optimizer step). `request(entry, dev, n_points, k)` returns a callable
+optimizer step); "seg_train_step_dp" is the segmentation step under a
+parallel.mesh.Mesh (a group of one, made for each call and closed after
+it), the step the benchmark's 4-card cell runs on each rank. `request(entry, dev, n_points, k)` returns a callable
 that runs one request from the same start every call: the same shapes,
 draws and weights (the trainers' weights copied back and their
 optimizer's state dropped), so two calls make the same host
@@ -61,6 +63,8 @@ def request(entry: str, dev: torch.device, n_points: int, k: int,
             spline_fit=fit, device=dev, timer=timer)
     if entry == "seg_train_step":
         return _seg_step(dev, n_points, k, timer)
+    if entry == "seg_train_step_dp":
+        return _seg_step_on_a_mesh(dev, n_points, k, timer)
     if entry == "e2e_train_step":
         return _e2e_step(dev, n_points, k, timer)
     if entry == "spline_train_step":
@@ -91,7 +95,19 @@ def _from_the_start(model, opt, step):
     return run
 
 
-def _seg_step(dev, n_points, k, timer):
+def _seg_step_on_a_mesh(dev, n_points, k, timer):
+    from parsenet_tpu_torch.parallel.mesh import make_mesh
+
+    def run():
+        mesh = make_mesh(1, device=dev)
+        try:
+            return _seg_step(dev, n_points, k, timer, mesh)()
+        finally:
+            mesh.close()
+    return run
+
+
+def _seg_step(dev, n_points, k, timer, mesh=None):
     from parsenet_tpu_torch.losses.embedding import draw_triplet
     from parsenet_tpu_torch.models import dgcnn
     from parsenet_tpu_torch.train import state, train_seg
@@ -101,7 +117,7 @@ def _seg_step(dev, n_points, k, timer):
     dgcnn.init_flax_like(model, torch.Generator().manual_seed(0))
     model.to(dev)
     opt = state.make_optimizer(model.parameters(), "adam", 1e-3)
-    train_step, _ = train_seg.make_step_fns(model, opt)
+    train_step, _ = train_seg.make_step_fns(model, opt, mesh)
     u_pts, u_pairs = draw_triplet(2, _generator(dev), dev)
     return _from_the_start(model, opt, lambda: train_step(
         x, labels, prim, u_pts[:, None], u_pairs[:, None], 1e-3, timer))
