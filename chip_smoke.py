@@ -14,6 +14,7 @@ Phases, one line each (plus detail lines):
      tensor-core K1s (bf16 and 3xTF32): the fixed-count ones must keep
      their 24 and 60, the early-exit ones must have some, and the
      instructions of K3's scan loop for each R, per (target, query) pair;
+     K6's and K7's registers, no spill in either;
   3. kernel vs plain on the card at main-path shapes:
      K1 f32 (3xTF32 tensor-core kernel) at the 10,000 x 128 stream-a
         embedding and its bandwidth, on ms_plan's grid (every SM, partial
@@ -223,7 +224,14 @@ Phases, one line each (plus detail lines):
      eager time, the rounds, the time a round (one call against a call
      capped at one round), the barrier, shuffle and redux.sync latencies of
      a clock64 probe (kernels.auction_latency_probe) and the latency bound,
-     rounds x (one barrier + a 5-step shuffle reduction).
+     rounds x (one barrier + a 5-step shuffle reduction); K7 (the 3x3
+     eigensolver) at the fits' [50, 3, 3], the protocol's 12 slots, e2e-
+     train's 4 and a single matrix (sample covariances of 8,000 points with
+     a thin axis): w and V the plain version's bit for bit, device and
+     eager time beside the plain version's eager time, the latency bound
+     (7 x 3 rotation chains at the latencies of a clock64 probe,
+     kernels.eigh3_latency_probe, plus K7's time at 0 sweeps), and the
+     kernels torch.bmm runs at each batch, as the profiler names them.
      Times are CUDA events around back-to-back eager calls (`cuda_ms`,
      what the program sees); K2, K3 (each of a shape's three inference
      calls, and the training call), K4 and their yardsticks also get a
@@ -1583,6 +1591,19 @@ def main():
 
     phase(k6_build)
 
+    def k7_build():
+        # K7's two instances (batch 1 and the rest) and its latency probe:
+        # registers, no spill
+        log = kernels.BUILD_LOG.get("K7", "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [ln.strip() for ln in log.splitlines()
+                  if re.search(r"[1-9]\d* bytes spill", ln)]
+        report["K7_ptxas"] = {"registers": regs, "spills": spills}
+        check(len(regs) == 3 and not spills,
+              f"eigh3.cu: no spills from ptxas (registers {regs}, {spills})")
+
+    phase(k7_build)
+
     # ---- shared inputs: stream a exactly as bench.py builds it
     n_batch, warmup, iters, n_pts = 4, 2, 8, 10000
     pts, labels, normals, prim = make_shape_batch(
@@ -2315,7 +2336,7 @@ def main():
               f"{floors['residual_max']}")
         check(mean["sk_2"] >= floors["sk_2_min"],
               f"{label} sk_2 {mean['sk_2']:.4f} >= {floors['sk_2_min']}")
-        for kname in ("K1tc", "K2", "K3"):
+        for kname in ("K1tc", "K2", "K3", "K7"):
             check(launches[kname] > 0,
                   f"{label}: {kname} launched ({launches[kname]})")
         check(launches["K1"] == 0 and launches["K1tc_exit"] == 0,
@@ -2366,6 +2387,9 @@ def main():
         check(launches["K3"] == 4 * shapes, f"K3 launched 4 times a shape, "
               f"the 12 slot residuals in one ({launches['K3']} for "
               f"{shapes} shapes)")
+        # per shape: the 3 fits and the 2 standardize calls of the slots
+        check(launches["K7"] == 5 * shapes, f"K7 launched 5 times a shape "
+              f"({launches['K7']} for {shapes} shapes)")
         # one SIOU call, so one K2 launch, a batch
         check(launches["K2"] == warmup + iters and len(calls) == warmup
               + iters, f"K2 launched once a batch ({launches['K2']} for "
@@ -2639,6 +2663,8 @@ def main():
             "test", lambda: run_test(["0", str(n8)], n8), n8)
         check(l_test["K3"] == 4 * n8, f"test: K3 launched 4 times a shape "
               f"({l_test['K3']} for {n8})")
+        check(l_test["K7"] == 5 * n8, f"test: K7 launched 5 times a shape "
+              f"({l_test['K7']} for {n8})")
         ctest.refine_splines = keep_refit
         try:
             opt, opt_ms, l_opt = step(
@@ -2649,6 +2675,8 @@ def main():
         n_refit = sum(int(np.any(a != b)) for a, b in refits)
         check(l_opt["K3"] == 7 * 2, f"test --optimize: K3 launched 7 times a "
               f"shape, 3 of them the refined coverage ({l_opt['K3']} for 2)")
+        check(l_opt["K7"] == 5 * 2, f"test --optimize: K7 launched 5 times a "
+              f"shape ({l_opt['K7']} for 2)")
         check(len(refits) == 2 and n_refit > 0 and all(
             np.isfinite(a).all() for a, _ in refits), "test --optimize: "
             f"{n_refit} segments refit, every refined surface finite")
@@ -3054,7 +3082,7 @@ def main():
 
         runs = train_full("5e e2e", run, 3, per_step)
         out["full"], out["full_repeat"] = runs
-        for kname in ("K1", "K2", "K3", "K4"):
+        for kname in ("K1", "K2", "K3", "K4", "K7"):
             check(runs[0]["launches"][kname] > 0, f"e2e run launched "
                   f"{kname} ({runs[0]['launches'][kname]})")
         repeat_check("e2e", runs)
@@ -3151,7 +3179,7 @@ def main():
                           f"bench {tag}: {k} {got:.5f} against the JAX "
                           f"full path's {want} (0.01 absolute, 10% "
                           "relative)")
-                for kname in ("K1tc", "K2", "K3"):
+                for kname in ("K1tc", "K2", "K3", "K7"):
                     check(launches[kname] > 0,
                           f"bench {tag}: {kname} launched {launches[kname]}")
                 check(launches["K1"] == 0, f"bench {tag}: no f32 K1")
@@ -3165,9 +3193,10 @@ def main():
                     ("seg", cbt.bench_seg, {}, ()),
                     ("seg_bf16", cbt.bench_seg, {"BT_BF16": "1"}, ()),
                     ("seg_remat", cbt.bench_seg, {"BT_REMAT": "1"}, ()),
-                    ("e2e", cbt.bench_e2e, {}, ("K1", "K2", "K3", "K4")),
+                    ("e2e", cbt.bench_e2e, {}, ("K1", "K2", "K3", "K4",
+                                                "K7")),
                     ("e2e_fast", cbt.bench_e2e, {"BT_FAST": "1"},
-                     ("K1", "K2", "K3", "K4"))):
+                     ("K1", "K2", "K3", "K4", "K7"))):
                 steps = 2 if tag.startswith("seg") else 3
                 rec, launches = counted(lambda: fn(env, steps=steps,
                                                    device=dev))
@@ -3348,7 +3377,7 @@ def main():
         # full-width run, at 8,000 x 128 x 5 iterations
         e2e_l = report.get("e2e", {}).get("full", {}).get(
             "launches", {k: 0 for k in kernels.LAUNCHES})
-        # and every launch of phase 4d's test protocol (K1 f32, K2, K3)
+        # and every launch of phase 4d's test protocol (K1 f32, K2, K3, K7)
         proto_l = report.get("test_protocol", {}).get(
             "launches", {k: 0 for k in kernels.LAUNCHES})
         x8 = embn[:8000].contiguous()
@@ -3790,6 +3819,93 @@ def main():
             "replaces": None, "launches": launches["K6"] + bench_l["K6"],
             "launches_bench": bench_l["K6"], **k6, "bound_by": "operations",
             "graphs": per_graph, "id": "K6"})
+
+        # K7 at every batch the main path gives it: the fits' [50, 3, 3],
+        # the protocol's 12 slots and e2e-train's 4 (the plain path's
+        # cuBLAS products, which K7 copies, pick their kernel by the batch
+        # count); sample covariances of 8,000 points, one axis thin as a
+        # fitted plane's. Bound: latency, one thread's chain (csrc/eigh3.cu):
+        # 7 sweeps x 3 rotations x (8 FP latencies, an atan2f and the
+        # slower of cosf and sinf) at the probe's clock, plus K7's device
+        # time at 0 sweeps (launch, loads, sort and stores); beside it the
+        # operations floor at the FP32 rate, which a chain of one thread a
+        # matrix does not come near
+        from torch.profiler import ProfilerActivity, profile
+        probe7 = kernels.eigh3_latency_probe(dev)
+        report["K7_probe"] = probe7
+        ghz7 = probe7["clock_ghz"]
+        chain7 = (8 * probe7["fma_cycles"] + probe7["atan2_cycles"]
+                  + max(probe7["cos_cycles"], probe7["sin_cycles"]))
+        print(f"[6 times] K7 latency probe ({ghz7:.3f} GHz): FMA "
+              f"{probe7['fma_cycles']:.1f} cycles, atan2f "
+              f"{probe7['atan2_cycles']:.1f}, cosf {probe7['cos_cycles']:.1f}"
+              f", sinf {probe7['sin_cycles']:.1f}; a rotation's chain "
+              f"{chain7:.1f} cycles", flush=True)
+
+        def bmm_kernels(b, a):
+            """The card's kernels of the plain path's two kinds of product
+            at batch b (J^T A, transposed; B J and V J, untransposed), as
+            the profiler names them (empty where it records none)."""
+            j = torch.eye(3, device=dev).expand(b, 3, 3).contiguous()
+            names = {}
+            for kind, fn in (("JtA", lambda: j.transpose(-1, -2) @ a),
+                             ("BJ", lambda: a @ j)):
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                names[kind] = sorted({
+                    e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+            return names
+
+        g7 = torch.Generator(device=dev)
+        g7.manual_seed(7)
+        k7 = []
+        for b in (50, 12, 4, 1):
+            x7 = torch.randn(b, 8000, 3, generator=g7, device=dev) * \
+                torch.tensor([1.0, 0.5, 1e-3], device=dev)
+            x7 = x7 - x7.mean(1, keepdim=True)
+            a7 = x7.transpose(1, 2) @ x7
+            fn = lambda: kernels.eigh3(a7)   # noqa: E731
+            plain = lambda: kernels.eigh3_plain(a7)   # noqa: E731
+            (w7, v7), (wp, vp) = fn(), plain()
+            same = (torch.equal(w7.view(torch.int32), wp.view(torch.int32))
+                    and torch.equal(v7.view(torch.int32),
+                                    vp.view(torch.int32)))
+            check(same, f"K7 [{b}, 3, 3]: w and V the plain version's bit "
+                  "for bit")
+            dev_ms = graph_ms(fn, 50)
+            zero_ms = graph_ms(lambda: kernels.eigh3(a7, 0), 50)
+            bound = zero_ms + 7 * 3 * chain7 / ghz7 * 1e-6
+            t = {"batch": b, "same": same, "ms": cuda_ms(fn, 200),
+                 "device_ms": dev_ms, "zero_sweeps_device_ms": zero_ms,
+                 "plain_ms": cuda_ms(plain, 20),
+                 "bound_ms": bound, "latency_bound_ms": bound,
+                 "rotation_chain_cycles": chain7,
+                 "ops_floor_ms": 1000.0 * b * 7 * 3 * 81 * 2 / PEAK_FP32,
+                 "cublas_kernels": bmm_kernels(b, a7)}
+            print(f"[6 times] K7 [{b}, 3, 3]: kernel {t['ms']:.4f} ms eager, "
+                  f"{dev_ms:.4f} ms device ({zero_ms:.4f} at 0 sweeps); "
+                  f"plain version {t['plain_ms']:.3f} ms eager; latency "
+                  f"bound {bound:.4f} ms ({100.0 * bound / dev_ms:.1f}% of "
+                  f"the device time); operations floor "
+                  f"{t['ops_floor_ms']:.7f} ms (not binding)", flush=True)
+            print(f"  torch.bmm's kernels at batch {b}: J^T A "
+                  f"{t['cublas_kernels']['JtA'] or 'none recorded'}; B J "
+                  f"{t['cublas_kernels']['BJ'] or 'none recorded'}",
+                  flush=True)
+            k7.append(t)
+        entries.append({
+            "name": "eigh3", "route": "cuda",
+            "source": "parsenet_tpu_torch/csrc/eigh3.cu", "replaces": None,
+            "launches": launches["K7"] + e2e_l["K7"] + proto_l["K7"]
+            + bench_l["K7"],
+            "launches_e2e": e2e_l["K7"], "launches_protocol": proto_l["K7"],
+            "launches_bench": bench_l["K7"], **k7[0], "slots": k7[1],
+            "train_slots": k7[2], "single": k7[3], "bound_by": "latency",
+            "id": "K7"})
 
         # K5: one step at 10,000 x 128 (no program path runs it); its
         # yardstick is one f32 SDPA step of the same queries and keys; its

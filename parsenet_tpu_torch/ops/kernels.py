@@ -21,18 +21,22 @@ CUDA C++ source for sm_90a under `csrc/`:
   K6 knn_graph.cu       <- no TPU kernel (XLA's score product and top-k):
                           the DGCNN's exact k-NN graphs, scores and top-k
                           on chip (knn_graph; ops/knn.knn_graph routes)
+  K7 eigh3.cu           <- no TPU kernel (XLA fuses `_jacobi_eigh3`): the
+                          batched symmetric 3x3 Jacobi eigensolver, one
+                          thread a matrix (eigh3; ops/linalg.eigh3 routes)
 
 `build_kernels` compiles every source with nvcc into a plain-C shared
 library under `csrc/build/` (one nvcc per source, all started together; a
 library whose source hash is already built is reused) and loads it with
 ctypes. A wrapper given CUDA tensors launches its kernel on the current
 stream or raises; only CPU tensors go to the plain PyTorch version beside
-it. `LAUNCHES` counts kernel launches, one per wrapper call that launches
+it, except K7's, which refuses them (ops/linalg.eigh3 routes, so a CPU
+f32 input keeps the plain version's autograd). `LAUNCHES` counts kernel launches, one per wrapper call that launches
 (K3's entry adds its merge pass, when its plan splits the targets, as part
 of the same launch).
 
-K1, K2, K5, K6 and the raw K3 have no backward: given an input that requires
-grad while grad mode is on they raise, on every device, instead of
+K1, K2, K5, K6, K7 and the raw K3 have no backward: given an input that
+requires grad while grad mode is on they raise, on every device, instead of
 returning a result with no `grad_fn`. The differentiable min-sqdist is
 `MinSqdist` (K3 forward, K4 backward).
 """
@@ -53,7 +57,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"K1": "ms_iterations_tf32.cu", "K1tc": "ms_iterations_tc.cu",
            "K2": "auction_assign.cu", "K3": "min_sqdist.cu",
-           "K4": "min_sqdist_bwd.cu", "K6": "knn_graph.cu"}
+           "K4": "min_sqdist_bwd.cu", "K6": "knn_graph.cu",
+           "K7": "eigh3.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -81,6 +86,7 @@ ENTRIES = {
     "K5": ("K1", "ms_iterations_tf32",
            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "K6": ("K6", "knn_graph", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "K7": ("K7", "eigh3", [_P, _P, _P, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}
@@ -1215,3 +1221,78 @@ def knn_graph(x: torch.Tensor, k: int,
     _launch("K6", xt.data_ptr(), nrm.data_ptr(), lists.data_ptr(),
             idx.data_ptr(), b, n, npad, c, k, int(points_normals))
     return idx
+
+
+# ---------------------------------------------------------------------------
+# K7: the batched symmetric 3x3 eigensolver
+# ---------------------------------------------------------------------------
+
+
+def eigh3_plain(A: torch.Tensor, sweeps: int = 7):
+    """K7's function in plain PyTorch: symmetric [..., 3, 3] ->
+    (eigenvalues ascending [..., 3], eigenvectors as columns [..., 3, 3])
+    by fixed cyclic Jacobi sweeps, each rotation J^T A J by two products;
+    equal eigenvalues in index order, a NaN last (a stable argsort)."""
+    eye = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape)
+    V = eye.clone()
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
+            theta = 0.5 * torch.atan2(2.0 * apq, aqq - app)
+            c, s = torch.cos(theta), torch.sin(theta)
+            J = eye.clone()
+            J[..., p, p] = c
+            J[..., q, q] = c
+            J[..., p, q] = s
+            J[..., q, p] = -s
+            A = J.transpose(-1, -2) @ A @ J
+            V = V @ J
+    w = torch.diagonal(A, dim1=-2, dim2=-1)
+    order = torch.argsort(w, dim=-1, stable=True)
+    w = torch.gather(w, -1, order)
+    V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
+    return w, V
+
+
+def eigh3(A: torch.Tensor, sweeps: int = 7):
+    """K7. A [..., 3, 3] f32 on the card -> (w [..., 3], V [..., 3, 3]),
+    contiguous f32, in one launch on the current stream (none for an empty
+    batch): the plain version's sweeps, rotations and sort bit for bit.
+    `ops/linalg.eigh3` decides which inputs take it and sends every other
+    to `eigh3_plain`; this entry refuses them. No backward."""
+    if (not _on_cuda("eigh3", A) or A.dtype != torch.float32
+            or A.shape[-2:] != (3, 3)):
+        raise ValueError(f"eigh3: K7 takes f32 [..., 3, 3] on a CUDA "
+                         f"device, got {tuple(A.shape)} {A.dtype} on "
+                         f"{A.device}")
+    a = A.contiguous()
+    w = a.new_empty(A.shape[:-1])
+    V = a.new_empty(A.shape)
+    batch = a.numel() // 9
+    if batch:
+        _launch("K7", a.data_ptr(), w.data_ptr(), V.data_ptr(), batch,
+                max(sweeps, 0))
+    return w, V
+
+
+def eigh3_latency_probe(device, iters: int = 4096) -> dict:
+    """The latencies K7's bound is made of, by `eigh3_probe` (clock64 in
+    one thread on `device`): cycles per dependent FMA, atan2f, cosf and
+    sinf, and the SM clock in GHz over the probe (cycles over globaltimer
+    ns). Counted in no LAUNCHES entry: it is a measurement, not a kernel
+    of a path."""
+    if "K7" not in _LIBS:
+        build_kernels()
+    fn = _LIBS["K7"].eigh3_probe
+    fn.argtypes = [_P, _I, _P]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(7, dtype=torch.int64, device=device)
+    rc = fn(out.data_ptr(), int(iters),
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kernels: eigh3_probe failed with cudaError "
+                           f"{rc}")
+    c = out.tolist()
+    return {"fma_cycles": c[0] / iters, "atan2_cycles": c[1] / iters,
+            "cos_cycles": c[2] / iters, "sin_cycles": c[3] / iters,
+            "clock_ghz": c[4] / c[5]}

@@ -1,42 +1,34 @@
 """3x3 linear algebra for the fitting stack.
 
 Counterpart of parsenet_tpu/ops/linalg.py: the branch-free cyclic-Jacobi
-eigendecomposition of symmetric 3x3 matrices, `safe_eigh` (that forward
-with the eigengap-clamped backward of the JAX package's custom VJP), the
-smallest eigenvector with its sign rule, and the ridge-regularised
-normal-equation least squares.
+eigendecomposition of symmetric 3x3 matrices (K7 on the card), `safe_eigh`
+(that forward with the eigengap-clamped backward of the JAX package's
+custom VJP), the smallest eigenvector with its sign rule, and the
+ridge-regularised normal-equation least squares.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.profiling import trace
+from . import kernels
 
 _GAP_EPS = 1e-4  # the smallest eigengap the backward divides by
 
 
 def eigh3(A: torch.Tensor, sweeps: int = 7):
     """Symmetric [..., 3, 3] -> (eigenvalues ascending [..., 3],
-    eigenvectors as columns [..., 3, 3]) by fixed cyclic Jacobi sweeps."""
-    eye = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape)
-    V = eye.clone()
-    for _ in range(sweeps):
-        for p, q in ((0, 1), (0, 2), (1, 2)):
-            app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
-            theta = 0.5 * torch.atan2(2.0 * apq, aqq - app)
-            c, s = torch.cos(theta), torch.sin(theta)
-            J = eye.clone()
-            J[..., p, p] = c
-            J[..., q, q] = c
-            J[..., p, q] = s
-            J[..., q, p] = -s
-            A = J.transpose(-1, -2) @ A @ J
-            V = V @ J
-    w = torch.diagonal(A, dim1=-2, dim2=-1)
-    order = torch.argsort(w, dim=-1, stable=True)
-    w = torch.gather(w, -1, order)
-    V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
-    return w, V
+    eigenvectors as columns [..., 3, 3]) by fixed cyclic Jacobi sweeps:
+    K7 for a CUDA f32 input (`kernels.eigh3`, one launch), the plain
+    version (`kernels.eigh3_plain`) for every other. One `linalg.eigh3`
+    span a call."""
+    if A.shape[-2:] != (3, 3):
+        raise ValueError(f"eigh3: expected [..., 3, 3], got "
+                         f"{tuple(A.shape)}")
+    with trace("linalg.eigh3"):
+        if A.device.type == "cuda" and A.dtype == torch.float32:
+            return kernels.eigh3(A, sweeps)
+        return kernels.eigh3_plain(A, sweeps)
 
 
 class SafeEigh(torch.autograd.Function):

@@ -157,9 +157,10 @@ def test_kernel_sources_target_sm90a():
     assert "arch=compute_90a,code=sm_90a" in " ".join(kernels.NVCC_FLAGS)
     for name, src in kernels.SOURCES.items():
         text = (kernels.CSRC / src).read_text()
-        # K6 has no Pallas counterpart (the JAX package leaves the DGCNN's
-        # graphs to XLA), and its source says so
-        assert ("Replaces no TPU kernel" if name == "K6" else
+        # K6 and K7 have no Pallas counterpart (the JAX package leaves the
+        # DGCNN's graphs and the 3x3 Jacobi eigensolver to XLA), and their
+        # sources say so
+        assert ("Replaces no TPU kernel" if name in ("K6", "K7") else
                 "Replaces: parsenet_tpu/ops/pallas_kernels.py") in text, src
         assert "Bound on this card" in text and "Design" in text, src
         assert 'extern "C"' in text and "cudaGetLastError" in text, src
